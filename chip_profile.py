@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the device time goes in the port's hybrid serving cells, on one
+NVIDIA GPU.
+
+    python3 chip_profile.py [--n 100000]
+
+Builds the headline model (V=3, K=4, M=30, depth 2, IsoSE(0, 0), log
+noise -1, seed 0, float32) on ``--n`` points, fits it once with
+``fit(store='hybrid')`` (every bucket cached) to build the kernels, then
+runs under ``torch.profiler`` (CPU + CUDA activities): one more hybrid
+fit, and one cached ``predict`` at T=1 and T=2000. For each, one JSON
+line: the wall-clock, the device time summed over all kernels, the
+blocked Cholesky kernel's share (its three CUDA kernels), and the kernels
+with the most device time. Needs a CUDA device; prints nothing else.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+
+#: the CUDA kernels of csrc/blocked_cholesky.cu
+BLOCKED = ("diag_factor_kernel", "panel_solve_kernel", "trailing_update_kernel")
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile(label, fn, top=12):
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if _device_us(e) > 0 and not e.key.startswith("aten::")]
+    rows.sort(key=lambda r: -r[2])
+    total = sum(r[2] for r in rows)
+    blocked = sum(r[2] for r in rows if any(k in r[0] for k in BLOCKED))
+    print(json.dumps({
+        "profile": label, "wall_s": wall, "device_kernels_ms": total / 1e3,
+        "blocked_cholesky_ms": blocked / 1e3,
+        "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3}
+                for k, c, us in rows[:top]],
+    }), flush=True)
+
+
+def main():
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--n", type=int, default=100_000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile.py: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 1.0, args.n)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, args.n)
+    model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                             log_noise=-1.0, seed=0, device="cuda",
+                             dtype=torch.float32, do_fit=False)
+    model.fit(store="hybrid")  # builds the kernels, warms the allocator
+    model.update()
+    # the factorization work of the cached buckets, padded and valid, and
+    # its least time at 67 TFLOP/s (float32 FMA outside the tensor cores)
+    padded = sum(b.num_leaves * b.nmax**3 / 3 for b in model.bucket_batches)
+    valid = sum(float((b.n.double().cpu() ** 3 / 3).sum())
+                for b in model.bucket_batches)
+    print(json.dumps({"card": card, "n": args.n,
+                      "cached_bytes": model.last_fit_diagnostics["cached_bytes"],
+                      "cholesky_tflop_padded": padded / 1e12,
+                      "cholesky_tflop_valid": valid / 1e12,
+                      "bound_s_padded": padded / 67e12,
+                      "bound_s_valid": valid / 67e12}), flush=True)
+    profile(f"hybrid_fit_n{args.n}", lambda: model.fit(store="hybrid"))
+    model.update()
+    xt = np.linspace(-0.05, 1.05, 2000).reshape(-1, 1)
+    model.predict(xt)
+    for T in (1, 2000):
+        sel = np.linspace(0, 1999, T).astype(int)
+        profile(f"cached_predict_n{args.n}_t{T}", lambda: model.predict(xt[sel]))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,11 +3,15 @@
 Processes), beside the JAX package it is held to.
 
 This package imports ``torch`` and NumPy, never JAX. It covers the
-serving path: ``build_dsmgp`` (host tree, plan and size buckets on an
-explicit device) → ``fit`` (streamed leaf likelihoods) → ``update``
-(posterior sum weights) → ``predict`` (routed mixture prediction). The
-fused gram+Cholesky kernel is hand-written CUDA (``csrc/``), built with
-``nvcc`` on first use.
+serving path: ``build_dsmgp`` / ``build_poe`` / ``build_bcm`` (host tree,
+plan and size buckets on an explicit device) → ``fit`` (the light store
+with its alpha cache, or the hybrid store that keeps the largest buckets'
+factors) → ``update`` (posterior sum weights) → ``predict`` (routed
+mixture prediction, or the PoE fusions), plus ``checkpoint`` (the JAX
+package's npz format) and ``serve`` (``Predictor``, ``MicroBatcher``,
+HTTP). The two factorization kernels, fused gram+Cholesky and blocked
+Cholesky, are hand-written CUDA (``csrc/``), built with ``nvcc`` on first
+use.
 
 Importing the package turns TF32 off for float32 matmuls and
 convolutions: grams and Cholesky updates need full float32 (nearby points
@@ -24,7 +28,15 @@ _torch.set_float32_matmul_precision("highest")
 from .config import EPS  # noqa: E402
 from .kernels import ArdLinear, ArdSE, IsoLinear, IsoSE  # noqa: E402
 from .means import ConstMean  # noqa: E402
-from .models import build_dsmgp  # noqa: E402
+from .models import (  # noqa: E402
+    DSMGP,
+    GPoE,
+    PoE,
+    RBCM,
+    build_bcm,
+    build_dsmgp,
+    build_poe,
+)
 
 __all__ = [
     "EPS",
@@ -33,7 +45,13 @@ __all__ = [
     "IsoLinear",
     "ArdLinear",
     "ConstMean",
+    "DSMGP",
+    "PoE",
+    "GPoE",
+    "RBCM",
     "build_dsmgp",
+    "build_poe",
+    "build_bcm",
 ]
 
 __version__ = "0.1.0"

@@ -1,11 +1,18 @@
-"""Streamed leaf fitting and prediction over size buckets (counterpart of
-the light/streamed half of ``deepstructuredmixtures_tpu/fit.py``).
+"""Leaf fitting and prediction over size buckets (counterpart of the
+bucketed half of ``deepstructuredmixtures_tpu/fit.py``).
 
-Factors never persist: per leaf chunk the covariance is rebuilt, factored
-(the fused CUDA kernel where it applies, else ``torch.linalg``) and
-consumed. A leaf-chunk loop is a Python ``for`` over slices of the bucket,
-so the last chunk is simply shorter; the JAX package pads it to a full
-chunk for ``lax.map``.
+* streamed (the light store): per leaf chunk the covariance is rebuilt,
+  factored (the fused CUDA kernel where it applies, else ``torch.linalg``)
+  and consumed; factors never persist. The alpha variants also keep the
+  O(N) weights ``alpha = K^{-1} y`` for the exact mean-only path;
+* cached (the hybrid store): the chosen buckets keep their factors
+  (factored by the fused kernel, else by the blocked CUDA kernel
+  ``ops/potrf.py``), and a request runs only cross-grams and triangular
+  solves against them.
+
+A leaf-chunk loop is a Python ``for`` over slices of the bucket, so the
+last chunk is simply shorter; the JAX package pads it to a full chunk for
+``lax.map``.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from .leafgp import (
     leaf_noise,
 )
 from .ops import cholesky as chol
-from .ops import fused_chol
+from .ops import fused_chol, potrf
 
 REFINE_TODO = ("refine_steps > 0 is not ported yet: ROADMAP Queue 1 item 6 "
                "(refinement)")
@@ -68,6 +75,24 @@ def _factor(layout, theta, batch: LeafBatch):
     if Lf is None:
         Lf = chol.cholesky_nosym(_noisy_gram(layout, theta, batch))
     return Lf
+
+
+def _factor_kept(layout, theta, batch: LeafBatch):
+    """Factors that the hybrid store keeps: the fused kernel where it
+    applies; else on CUDA in float32 the blocked kernel, in place on the
+    noisy gram; else ``cholesky_nosym``."""
+    Lf = _maybe_fused_chol(layout, theta, batch)
+    if Lf is not None:
+        return Lf
+    Kn = _noisy_gram(layout, theta, batch)
+    if potrf.supported(batch.nmax, Kn.dtype, Kn.device):
+        return potrf.blocked_cholesky(Kn)
+    return chol.cholesky_nosym(Kn)
+
+
+def _alpha(Lf, z):
+    """``alpha = L^{-T} z`` from the forward solve ``z = L^{-1} y``."""
+    return torch.linalg.solve_triangular(Lf.mT, z, upper=True)
 
 
 def _chunks(batch: LeafBatch, theta, chunk: int):
@@ -184,3 +209,148 @@ def bucketed_streamed_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
         mu[idx], var[idx], mll[idx] = streamed_leaf_predict(
             layout, th, b, xt, ti, chunk=chunk)
     return mu, var, mll
+
+
+def streamed_leaf_alphas(layout: HyperLayout, theta, batch: LeafBatch,
+                         chunk: Optional[int] = None):
+    """``(mll [L], alpha [L, Nmax])`` in leaf chunks: the light fit plus the
+    transposed solve, keeping the O(N) weights the predictive mean needs
+    (``gp.α``, ``gaussianprocess.jl:105``) while the factors still never
+    persist."""
+    chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
+                batch.num_leaves)
+    mlls, alphas = [], []
+    for _, _, b, th in _chunks(batch, theta, chunk):
+        Lf = _factor(layout, th, b)
+        z = chol.solve_lower(Lf, centered_y(b)[..., None])
+        alphas.append(_alpha(Lf, z)[..., 0])
+        mlls.append(leaf_mll_forward(Lf, z[..., 0], b))
+    return torch.cat(mlls), torch.cat(alphas)
+
+
+def bucketed_leaf_alphas(layout: HyperLayout, theta, batches, leaf_ids, L,
+                         budget: int = 2 << 30, chunk: Optional[int] = None):
+    """All leaf mlls ``[L]`` plus the per-bucket alpha weights (a tuple of
+    ``[Lb, nmax_b]`` in bucket order): :func:`bucketed_leaf_mlls` with the
+    alpha cache for the mean-only serving path."""
+    dev = batches[0].x.device
+    mll = torch.zeros((L,), dtype=batches[0].x.dtype, device=dev)
+    alphas = []
+    for b, ids in zip(batches, leaf_ids):
+        idx = _leaf_index(ids, dev)
+        th = theta if theta.ndim == 1 else theta[idx]
+        c = chunk if chunk is not None else _bucket_chunk(
+            b.nmax, b.num_leaves, b.x.dtype, budget)
+        mll[idx], a_b = streamed_leaf_alphas(layout, th, b, chunk=c)
+        alphas.append(a_b)
+    return mll, tuple(alphas)
+
+
+def bucketed_alpha_mean(layout: HyperLayout, theta, batches, leaf_ids, L,
+                        alphas, xt, tidx, budget: int = 2 << 30):
+    """Routed predictive mean ``[L, tmax]`` from the cached alpha weights:
+    one cross-gram contraction per leaf chunk, O(n·t) work per leaf and no
+    factorization (``μ = m + K_nt' α``, ``gaussianprocess.jl:118``). The
+    variance needs the factors, so it is not available here."""
+    T = tidx.shape[1]
+    dev = batches[0].x.device
+    dt = batches[0].x.dtype
+    mu = torch.zeros((L, T), dtype=dt, device=dev)
+    for b, ids, a_b in zip(batches, leaf_ids, alphas):
+        idx = _leaf_index(ids, dev)
+        th = theta if theta.ndim == 1 else theta[idx]
+        ti = tidx[idx]
+        # the peak buffer is the [chunk, nmax, tmax] cross gram
+        c = max(1, min(budget // (3 * b.nmax * max(T, 1) * dt.itemsize),
+                       b.num_leaves))
+        parts = []
+        for s, e, bb, tt in _chunks(b, th, c):
+            Knt = leaf_gram(layout, tt, bb, xt[ti[s:e]])  # [c, nmax, tmax]
+            Knt = torch.where(bb.mask[:, :, None], Knt, 0.0)
+            parts.append(bb.mean[:, None]
+                         + torch.einsum("lnt,ln->lt", Knt, a_b[s:e]))
+        mu[idx] = torch.cat(parts)
+    return mu
+
+
+def streamed_leaf_factors(layout: HyperLayout, theta, batch: LeafBatch,
+                          chunk: Optional[int] = None):
+    """``(mll [L], alpha [L, Nmax], Lf [L, Nmax, Nmax])`` in leaf chunks:
+    the alpha fit plus the factors, kept for the hybrid store (≙ the
+    reference's fit-once-predict-many ``gp.cK``,
+    ``gaussianprocess.jl:87-120``). Each chunk's factor is copied into one
+    bucket-sized buffer as soon as it is made."""
+    chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
+                batch.num_leaves)
+    n = batch.nmax
+    Lf_all = torch.empty((batch.num_leaves, n, n), dtype=batch.x.dtype,
+                         device=batch.x.device)
+    mlls, alphas = [], []
+    for s, e, b, th in _chunks(batch, theta, chunk):
+        Lf = _factor_kept(layout, th, b)
+        z = chol.solve_lower(Lf, centered_y(b)[..., None])
+        alphas.append(_alpha(Lf, z)[..., 0])
+        mlls.append(leaf_mll_forward(Lf, z[..., 0], b))
+        Lf_all[s:e] = Lf
+        del Lf
+    return torch.cat(mlls), torch.cat(alphas), Lf_all
+
+
+def cached_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, Lf,
+                        xt, tidx=None, chunk: Optional[int] = None):
+    """Per-leaf predictive moments from cached factors ``Lf``: a cross-gram
+    and one triangular solve per leaf chunk, O(n²t) per leaf and no
+    refactorization. Shapes and dtype as :func:`streamed_leaf_predict`,
+    without the mll.
+
+    As in the streamed path, one solve on ``[y | K_nt]`` gives ``z`` and
+    ``V``; the mean is ``m + V'z`` and the variance ``k_tt - ||V||² +
+    noise``. The solve runs in float64 against the float32 factor (cast per
+    chunk; the cache stays float32): on the ill-conditioned large leaves
+    of the N=100k tree a float32 solve moves the routed mean past the
+    float32 bound of ``chip_smoke.py`` (``PERF.md``). The JAX package
+    solves in the model dtype and writes the mean ``m + K_nt'α``, equal in
+    exact arithmetic."""
+    chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
+                batch.num_leaves)
+    dt = batch.x.dtype
+    mus, vars_ = [], []
+    for s, e, b, th in _chunks(batch, theta, chunk):
+        xt_leaf = xt if tidx is None else xt[tidx[s:e]]
+        Knt = leaf_gram(layout, th, b, xt_leaf)  # [C, Nmax, T]
+        Knt = torch.where(b.mask[:, :, None], Knt, 0.0)
+        rhs = torch.cat([centered_y(b)[..., None], Knt], dim=-1)
+        Z = chol.solve_lower(Lf[s:e].double(), rhs.double())
+        V = Z[..., 1:]
+        mus.append((b.mean[:, None] + torch.einsum("lnt,ln->lt", V, Z[..., 0]))
+                   .to(dt))
+        ktt = leaf_gram_diag(layout, th, b, xt_leaf)
+        noise = leaf_noise(layout, th, b)
+        vars_.append((ktt - torch.sum(V * V, dim=-2) + noise[:, None]).to(dt))
+    return torch.cat(mus), torch.cat(vars_)
+
+
+def bucketed_hybrid_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
+                            factors, xt, tidx=None, budget: int = 2 << 30):
+    """Predict over size buckets with a partial factor cache: a bucket whose
+    entry of ``factors`` is ``(Lf, alpha)`` predicts from it
+    (:func:`cached_leaf_predict`), a bucket whose entry is ``None`` streams
+    (:func:`streamed_leaf_predict`). Returns ``(mu [L, T|tmax], var)`` in
+    global leaf order."""
+    T = xt.shape[0] if tidx is None else tidx.shape[1]
+    dev = batches[0].x.device
+    dt = batches[0].x.dtype
+    mu = torch.zeros((L, T), dtype=dt, device=dev)
+    var = torch.ones((L, T), dtype=dt, device=dev)
+    for b, ids, cached in zip(batches, leaf_ids, factors):
+        idx = _leaf_index(ids, dev)
+        th = theta if theta.ndim == 1 else theta[idx]
+        chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
+        ti = None if tidx is None else tidx[idx]
+        if cached is not None:
+            mu[idx], var[idx] = cached_leaf_predict(
+                layout, th, b, cached[0], xt, ti, chunk=chunk)
+        else:
+            mu[idx], var[idx], _ = streamed_leaf_predict(
+                layout, th, b, xt, ti, chunk=chunk)
+    return mu, var

@@ -7,9 +7,11 @@ fit/update/predict part of ``deepstructuredmixtures_tpu/infer.py``).
 * ``update_weights`` — posterior sum-weight update and root log evidence
   (≙ ``update!``, ``common.jl:323-334``);
 * ``path_logweights`` — each leaf's mixture log-weight, the sum of the
-  sum-edge log-weights on its root-to-leaf path.
+  sum-edge log-weights on its root-to-leaf path;
+* ``predict_poe`` / ``predict_gpoe`` / ``predict_rbcm`` — the product-of-
+  experts fusions of per-leaf moments (``common.jl:145-273``).
 
-The weight update runs in float64 whatever the leaf dtype: its
+The weight update and the fusions run in float64 whatever the leaf dtype: its
 ``logsumexp`` normalization feeds the predictive moment matching, whose
 cancellations would floor the f32 end-to-end variance (the JAX package's
 ``combine_in_f64`` default, here a plain ``.double()``).
@@ -98,3 +100,47 @@ def path_logweights(plan: SPNPlan, logweights):
     lw = torch.cat([logweights, logweights.new_zeros(1)])
     gathered = lw[torch.where(msk, idx, logweights.shape[0])]
     return torch.sum(gathered, dim=1)
+
+
+def predict_poe(mu, var):
+    """Product-of-experts fusion over all experts, in float64 (≙
+    ``_predictPoE`` + ``predictPoE``, ``common.jl:145-149,198-208,256-260``).
+    ``mu, var [L, T]``; returns ``(mean [T], var [T])``."""
+    mu, var = mu.double(), var.double()
+    t = 1.0 / var
+    tsum = torch.sum(t, dim=0)
+    return torch.sum(t * mu, dim=0) / tsum, 1.0 / tsum
+
+
+def _group_poe(plan: SPNPlan, mu, var):
+    """Per-root-child PoE fusion: ``(mu_c [C, T], t_c [C, T])``."""
+    gid = _index(plan.root_child_id, mu.device)
+    n_groups = int(plan.root_child_id.max()) + 1
+    t = 1.0 / var
+    shape = (n_groups, mu.shape[1])
+    tw = torch.zeros(shape, dtype=mu.dtype, device=mu.device).index_add_(0, gid, t)
+    mw = torch.zeros(shape, dtype=mu.dtype, device=mu.device).index_add_(
+        0, gid, t * mu)
+    return mw / tw, tw
+
+
+def predict_gpoe(plan: SPNPlan, mu, var):
+    """Generalized PoE with ``β = 1/M``, M the number of root children, in
+    float64 (≙ ``_predictgPoE``, ``common.jl:211-222,263-267``)."""
+    mu_c, t_c = _group_poe(plan, mu.double(), var.double())
+    beta = 1.0 / mu_c.shape[0]
+    tsum = torch.sum(beta * t_c, dim=0)
+    return torch.sum(beta * t_c * mu_c, dim=0) / tsum, 1.0 / tsum
+
+
+def predict_rbcm(plan: SPNPlan, mu, var, prior_var):
+    """Robust Bayesian committee machine, in float64 (≙ ``_predictrBCM``,
+    ``common.jl:224-241,269-273``). ``prior_var [T]`` is the prior variance
+    ``diag(k(x, x)) + noise`` of the first leaf GP
+    (``common.jl:227-228``)."""
+    mu_c, t_c = _group_poe(plan, mu.double(), var.double())
+    prior_var = prior_var.double()
+    s = prior_var[None, :]
+    beta = 0.5 * (torch.log(s) - torch.log(1.0 / t_c))  # [C, T]
+    C = 1.0 / prior_var + torch.sum(beta * t_c - beta / s, dim=0)
+    return torch.sum(mu_c * beta * t_c, dim=0) / C, 1.0 / C

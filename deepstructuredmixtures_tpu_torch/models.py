@@ -1,15 +1,24 @@
-"""User-facing model and builder (counterpart of the fit → update →
-routed-predict part of ``deepstructuredmixtures_tpu/models.py``).
+"""User-facing models and builders (counterpart of
+``deepstructuredmixtures_tpu/models.py``, without the monolithic store,
+training and the mesh path).
 
-A model holds the compiled plan, the size-bucketed leaf batches on its
-device, the flat tied hyper vector, the flat sum-edge log-weights and the
-leaf mlls of the last fit (the light store: factors are never kept).
+A model holds its host tree, raw data, compiled plan, the size-bucketed
+leaf batches on its device, the flat tied hyper vector, the flat sum-edge
+log-weights and what the last fit kept:
+
+* the leaf mlls (every store);
+* the alpha cache, ``alpha = K^{-1} y`` per bucket (``cache_alpha=True``,
+  the default, and the hybrid store), for the exact mean-only path;
+* the hybrid store's per-bucket factors, ``(Lf, alpha)`` for the buckets
+  the greedy budget chose and ``None`` for the rest.
+
 ``V`` is the number of children per sum node and ``K`` the number of
 splits per split node.
 """
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,24 +26,21 @@ import torch
 from . import fit as fitlib
 from . import infer as inferlib
 from .config import EPS, DSMGPConfig, as_2d, default_dtype
-from .hyper import initial_vector, make_layout
-from .kernels import IsoSE, normalize_kernels
+from .hyper import initial_vector, make_layout, noise_from, unpack
+from .kernels import IsoSE, gram_diag, normalize_kernels
 from .plan import _round_up, bucket_batches, bucketize, compile_tree
-from .tree import build_tree
+from .tree import build_tree, num_mixtures
 
-__all__ = ["DSMGP", "build_dsmgp"]
+__all__ = ["DSMGP", "PoE", "GPoE", "RBCM", "build_dsmgp", "build_poe",
+           "build_bcm"]
 
 #: options of the JAX package that later work brings, with the ROADMAP item
 TODO = {
     "overlap": ("build_dsmgp(overlap=True) is not ported yet: ROADMAP Queue 1 "
                 "item 1 (overlap analysis and shared-Cholesky schedule)"),
     "method": "fit(method='shared') is not ported yet: ROADMAP Queue 1 item 1",
-    "store": ("fit(store='full'/'hybrid') is not ported yet: ROADMAP Queue 1 "
-              "item 3"),
-    "cache_alpha": ("fit(cache_alpha=True) is not ported yet: ROADMAP Queue 1 "
-                    "item 2 (mean-only serving)"),
-    "return_var": ("predict(return_var=False) is not ported yet: ROADMAP "
-                   "Queue 1 item 2 (mean-only serving)"),
+    "store": ("fit(store='full') is not ported yet: ROADMAP Queue 1 item 4 "
+              "(fit_batched and the monolithic posterior)"),
     "mesh": "fit(mesh=...) is not ported yet: ROADMAP Queue 1 item 11",
 }
 
@@ -47,7 +53,10 @@ def _sync(device):
 class BaseModel:
     """Shared state/behaviour of the tree-of-experts models."""
 
-    def __init__(self, plan, layout, theta, dtype, device, X, y):
+    def __init__(self, root, plan, layout, theta, dtype, device, X, y):
+        self.root = root  # host-side tree (checkpoints, introspection)
+        self.X = X  # raw training inputs (≙ getx, common.jl:315-317)
+        self.y = y  # raw training targets (≙ gety, common.jl:319-321)
         self.plan = plan
         self.layout = layout
         self.dtype = dtype
@@ -56,6 +65,9 @@ class BaseModel:
         self.logweights = torch.as_tensor(plan.init_logweights, dtype=dtype,
                                           device=self.device)
         self._leaf_mll = None  # leaf mlls [L] of the last fit
+        self._alpha_cache = None  # per-bucket alpha weights
+        self._bucket_factors = None  # per-bucket (Lf, alpha) or None
+        self.last_fit_diagnostics = {}
         self.bucket_spec = bucketize(plan)
         self.bucket_batches = bucket_batches(plan, self.bucket_spec, X, y,
                                              dtype, self.device)
@@ -64,31 +76,107 @@ class BaseModel:
     def num_leaves(self) -> int:
         return self.plan.num_leaves
 
+    def num_mixtures(self) -> int:
+        return num_mixtures(self.root)
+
     # -- fitting ------------------------------------------------------------
+    def _bucket_factor_bytes(self) -> int:
+        """The bucketed factor footprint ``Σ_b count_b · nmax_b²`` in bytes:
+        what the hybrid store costs with every bucket cached."""
+        item = self.dtype.itemsize
+        return sum(b.num_leaves * b.nmax * b.nmax * item
+                   for b in self.bucket_batches)
+
+    def _hybrid_cached_flags(self, factor_budget: int):
+        """Greedy bucket selection for the hybrid store: the FLOPs a cached
+        ``[n, n]`` factor saves per byte grow with n, so the largest
+        buckets go first while they fit the budget."""
+        item = self.dtype.itemsize
+        order = sorted(range(len(self.bucket_batches)),
+                       key=lambda k: -self.bucket_batches[k].nmax)
+        budget = int(factor_budget)
+        cached = [False] * len(self.bucket_batches)
+        for k in order:
+            b = self.bucket_batches[k]
+            fb = b.num_leaves * b.nmax * b.nmax * item
+            if fb <= budget:
+                cached[k] = True
+                budget -= fb
+        return tuple(cached)
+
+    def _fit_hybrid(self, factor_budget: int, chunk=None):
+        """Bucketed fit that keeps the factors (and alphas) of the buckets
+        :meth:`_hybrid_cached_flags` picks, for O(n²t) prediction; the rest
+        fit with alphas only and stream their factors per predict."""
+        cached = self._hybrid_cached_flags(factor_budget)
+        dev = self.device
+        mll = torch.zeros((self.num_leaves,), dtype=self.dtype, device=dev)
+        alphas, factors = [], []
+        for want, b, ids in zip(cached, self.bucket_batches,
+                                self.bucket_spec.leaf_ids):
+            idx = fitlib._leaf_index(ids, dev)
+            th = self.theta if self.theta.ndim == 1 else self.theta[idx]
+            c = chunk if chunk is not None else fitlib._bucket_chunk(
+                b.nmax, b.num_leaves, b.x.dtype)
+            if want:
+                mll[idx], a_b, Lf_b = fitlib.streamed_leaf_factors(
+                    self.layout, th, b, chunk=c)
+                factors.append((Lf_b, a_b))
+            else:
+                mll[idx], a_b = fitlib.streamed_leaf_alphas(
+                    self.layout, th, b, chunk=c)
+                factors.append(None)
+            alphas.append(a_b)
+        self._leaf_mll = mll
+        self._alpha_cache = tuple(alphas)
+        self._bucket_factors = tuple(factors)
+        item = self.dtype.itemsize
+        self.last_fit_diagnostics = {
+            "cached_buckets": int(sum(cached)),
+            "cached_bytes": sum(b.num_leaves * b.nmax * b.nmax * item
+                                for c, b in zip(cached, self.bucket_batches)
+                                if c),
+        }
+
     def fit(self, method: str = "auto", store: str = "auto", chunk=None,
-            mesh=None, cache_alpha: bool = False) -> float:
+            mesh=None, cache_alpha: bool = True,
+            factor_budget: Optional[int] = None) -> float:
         """Refit all leaf posteriors; returns wall-clock seconds like the
         reference ``fit!`` (``fit.jl:88,121``), the device synchronized.
 
-        The light store: leaf mlls bucket by bucket, factors streamed and
-        dropped (``store='auto'`` resolves to it). ``chunk`` bounds the
-        leaves factored at once."""
+        ``store='light'`` (which ``'auto'`` resolves to: the monolithic
+        ``'full'`` store is not ported) keeps the leaf mlls and, with
+        ``cache_alpha``, the per-leaf alpha weights (Σ n_l floats) that
+        ``predict(xt, return_var=False)`` serves the exact mean from.
+        ``store='hybrid'`` also keeps the factors of the largest buckets
+        that fit ``factor_budget`` bytes (default: all of them), so that a
+        request runs triangular solves instead of refactoring them.
+        ``chunk`` bounds the leaves factored at once."""
         if method not in ("auto", "batched"):
             raise NotImplementedError(TODO["method"])
-        if store in ("full", "hybrid"):
-            raise NotImplementedError(TODO["store"])
-        if store not in ("auto", "light"):
-            raise ValueError(f"unknown store {store!r}")
-        if cache_alpha:
-            raise NotImplementedError(TODO["cache_alpha"])
         if mesh is not None:
             raise NotImplementedError(TODO["mesh"])
+        if store == "full":
+            raise NotImplementedError(TODO["store"])
+        if store not in ("auto", "light", "hybrid"):
+            raise ValueError(f"unknown store {store!r}")
+        # drop what the last fit kept before this one allocates its own
+        self._leaf_mll = self._alpha_cache = self._bucket_factors = None
         t0 = time.perf_counter()
-        mll = fitlib.bucketed_leaf_mlls(
-            self.layout, self.theta, self.bucket_batches,
-            self.bucket_spec.leaf_ids, self.num_leaves, chunk=chunk)
+        if store == "hybrid":
+            if factor_budget is None:
+                factor_budget = self._bucket_factor_bytes()
+            self._fit_hybrid(factor_budget, chunk=chunk)
+        else:
+            args = (self.layout, self.theta, self.bucket_batches,
+                    self.bucket_spec.leaf_ids, self.num_leaves)
+            if cache_alpha:
+                self._leaf_mll, self._alpha_cache = fitlib.bucketed_leaf_alphas(
+                    *args, chunk=chunk)
+            else:
+                self._leaf_mll = fitlib.bucketed_leaf_mlls(*args, chunk=chunk)
+            self.last_fit_diagnostics = {}
         _sync(self.device)
-        self._leaf_mll = mll
         return time.perf_counter() - t0
 
     def leaf_mlls(self) -> torch.Tensor:
@@ -116,12 +204,28 @@ class BaseModel:
 
     def set_params(self, theta):
         """≙ ``setparams!(root, hyp)`` (``optimize.jl:188-198``); drops the
-        fit."""
+        fit and both caches."""
         self.theta = torch.as_tensor(np.array(theta), dtype=self.dtype,
                                      device=self.device)
-        self._leaf_mll = None
+        self._leaf_mll = self._alpha_cache = self._bucket_factors = None
 
     # -- prediction helpers -----------------------------------------------
+    def _as_test(self, xt):
+        return torch.as_tensor(as_2d(np.asarray(xt)), dtype=self.dtype,
+                               device=self.device)
+
+    def _leaf_predict_all(self, xt):
+        """Per-leaf moments at shared test points ``(mu, var) [L, T]``:
+        from the hybrid store where the last fit kept factors, else
+        streamed."""
+        self.leaf_mlls()
+        args = (self.layout, self.theta, self.bucket_batches,
+                self.bucket_spec.leaf_ids, self.num_leaves)
+        if self._bucket_factors is not None:
+            return fitlib.bucketed_hybrid_predict(*args, self._bucket_factors, xt)
+        mu, var, _ = fitlib.bucketed_streamed_predict(*args, xt)
+        return mu, var
+
     def _route(self, xt_np, pad_multiple: int = 8):
         """Host-side routing of test points to their active leaves
         (≙ the ``getchild`` recursion): padded ``(tidx int32, tmask bool)
@@ -144,13 +248,15 @@ class DSMGP(BaseModel):
         tensors on the model's device (≙ ``predict(::DSMGP)``,
         ``common.jl:294-304``).
 
-        Test points are routed on the host to their active leaves; each
-        bucket then refactors its leaves chunk by chunk and predicts its
-        routed points, and the moments are matched in log space."""
+        Test points are routed on the host to their active leaves. With
+        ``return_var=False`` and an alpha cache (``fit(cache_alpha=True)``,
+        the default, or the hybrid store) the mean alone comes from one
+        O(n·t) cross-gram pass per leaf. Otherwise the buckets of the hybrid
+        store predict from their cached factors and every other bucket
+        refactors its leaves chunk by chunk; the moments are matched in log
+        space. ``return_var=False`` returns the mean alone."""
         if refine_steps:
             raise NotImplementedError(fitlib.REFINE_TODO)
-        if not return_var:
-            raise NotImplementedError(TODO["return_var"])
         xt_np = as_2d(np.asarray(xt))
         T = xt_np.shape[0]
         tidx, tmask = self._route(xt_np)
@@ -158,11 +264,55 @@ class DSMGP(BaseModel):
         ti = torch.as_tensor(tidx, dtype=torch.long, device=self.device)
         tm = torch.as_tensor(tmask, device=self.device)
         xt_d = torch.as_tensor(xt_np, dtype=self.dtype, device=self.device)
-        mu, var, _ = fitlib.bucketed_streamed_predict(
-            self.layout, self.theta, self.bucket_batches,
-            self.bucket_spec.leaf_ids, self.num_leaves, xt_d, ti)
-        return _routed_moment_match(self.plan, mu, var, self.logweights,
-                                    ti, tm, T)
+        args = (self.layout, self.theta, self.bucket_batches,
+                self.bucket_spec.leaf_ids, self.num_leaves)
+        if not return_var and self._alpha_cache is not None:
+            mu = fitlib.bucketed_alpha_mean(*args, self._alpha_cache, xt_d, ti)
+            mean, _ = _routed_moment_match(self.plan, mu, torch.ones_like(mu),
+                                           self.logweights, ti, tm, T)
+            return mean
+        if self._bucket_factors is not None:
+            mu, var = fitlib.bucketed_hybrid_predict(
+                *args, self._bucket_factors, xt_d, ti)
+        else:
+            mu, var, _ = fitlib.bucketed_streamed_predict(*args, xt_d, ti)
+        mean, var = _routed_moment_match(self.plan, mu, var, self.logweights,
+                                         ti, tm, T)
+        return (mean, var) if return_var else mean
+
+
+class PoE(BaseModel):
+    """Product of experts (≙ ``PoE``, ``DeepStructuredMixtures.jl:114-118``)."""
+
+    def predict(self, xt):
+        mu, var = self._leaf_predict_all(self._as_test(xt))
+        return inferlib.predict_poe(mu, var)
+
+
+class GPoE(BaseModel):
+    """Generalized PoE (≙ ``gPoE``, ``DeepStructuredMixtures.jl:120-124``)."""
+
+    def predict(self, xt):
+        mu, var = self._leaf_predict_all(self._as_test(xt))
+        return inferlib.predict_gpoe(self.plan, mu, var)
+
+
+class RBCM(BaseModel):
+    """Robust Bayesian committee machine (≙ ``rBCM``,
+    ``DeepStructuredMixtures.jl:126-130``)."""
+
+    def predict(self, xt):
+        xt = self._as_test(xt)
+        mu, var = self._leaf_predict_all(xt)
+        # prior variance of the first (leftmost) leaf GP (≙ leftGP +
+        # kernelmatrix diag + noise, common.jl:227-228); under per-leaf
+        # hypers that is leaf 0's row
+        kid = int(self.plan.leaf_kernelid[0])
+        t = self.theta if self.theta.ndim == 1 else self.theta[0]
+        logl, logsigma, lognoise = unpack(self.layout, t, kid)
+        prior = gram_diag(self.layout.kinds[kid], logl, logsigma, xt) + noise_from(
+            lognoise)
+        return inferlib.predict_rbcm(self.plan, mu, var, prior)
 
 
 def _routed_moment_match(plan, mu, var, logweights, tidx, tmask, T):
@@ -202,6 +352,19 @@ def _routed_moment_match(plan, mu, var, logweights, tidx, tmask, T):
     return mean, v
 
 
+def _build(cls, x, y, config: DSMGPConfig, device, seed, dtype, do_fit):
+    x = as_2d(x)
+    y = np.asarray(y, dtype=np.float64).reshape(-1)
+    root = build_tree(x, y, config, np.random.default_rng(seed))
+    kernels = normalize_kernels(config.kernels)
+    model = cls(root, compile_tree(root, x), make_layout(kernels),
+                initial_vector(kernels, config.observation_noise),
+                dtype or default_dtype(device), device, x, y)
+    if do_fit:
+        model.fit()  # initial posterior fit (≙ treeStructure.jl:434)
+    return model
+
+
 def build_dsmgp(
     x,
     y,
@@ -233,13 +396,28 @@ def build_dsmgp(
         raise NotImplementedError(TODO["overlap"])
     kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
     config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, V, depth, eps, sum_root)
-    x = as_2d(x)
-    y = np.asarray(y, dtype=np.float64).reshape(-1)
-    root = build_tree(x, y, config, np.random.default_rng(seed))
-    kernels = normalize_kernels(config.kernels)
-    model = DSMGP(compile_tree(root, x), make_layout(kernels),
-                  initial_vector(kernels, config.observation_noise),
-                  dtype or default_dtype(device), device, x, y)
-    if do_fit:
-        model.fit()  # initial posterior fit (≙ treeStructure.jl:434)
-    return model
+    return _build(DSMGP, x, y, config, device, seed, dtype, do_fit)
+
+
+def build_poe(x, y, K: int = 4, *, device, generalized: bool = False,
+              eps: float = 0.0, M: int = 30, depth: int = 2, kernel=None,
+              mean_fun=None, log_noise: float = 1.0, seed=None, dtype=None,
+              do_fit: bool = True):
+    """Build a (generalized) product of experts on ``device``
+    (≙ ``buildPoE``, ``treeStructure.jl:360-371``): a split-only tree with
+    ``K`` splits per node."""
+    kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
+    config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, 1, depth, eps, False)
+    return _build(GPoE if generalized else PoE, x, y, config, device, seed,
+                  dtype, do_fit)
+
+
+def build_bcm(x, y, K: int = 4, *, device, eps: float = 0.0, M: int = 30,
+              depth: int = 2, kernel=None, mean_fun=None,
+              log_noise: float = 1.0, seed=None, dtype=None,
+              do_fit: bool = True) -> RBCM:
+    """Build a robust Bayesian committee machine on ``device``
+    (≙ ``buildBCM``, ``treeStructure.jl:392-403``)."""
+    kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
+    config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, 1, depth, eps, False)
+    return _build(RBCM, x, y, config, device, seed, dtype, do_fit)

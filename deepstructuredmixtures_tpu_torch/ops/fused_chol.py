@@ -7,25 +7,20 @@ output contract: ``[L, N, N]`` float32 lower factors, identity on the
 padded diagonal, zeros on padded rows and columns, strict upper triangle
 exactly 0. The kernel's design note is at the top of the CUDA source.
 
-The kernel is compiled with ``nvcc`` on first use into ``build/kernels/``
-(git-ignored) under a name carrying the source's hash, so an edited source
-rebuilds; it is a plain C shared library loaded with ``ctypes``. On a CPU
+The kernel is built and loaded by ``ops/build.py`` (``nvcc`` on first use,
+a plain C shared library under ``build/kernels/``, ``ctypes``). On a CPU
 tensor :func:`fused_gram_cholesky` runs the plain version; on a CUDA
 tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..config import EPS
 from ..kernels import gram
+from . import build
 from .cholesky import masked_gram_noise
 
 BLOCK = 128
@@ -34,11 +29,8 @@ MAX_N = 1024
 #: kernel launches so far (one per call of the CUDA path)
 LAUNCHES = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_gram_cholesky.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_LIB = None
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_void_p]
 
 
 def supported(nmax: int, dtype, kinds, device) -> bool:
@@ -52,39 +44,6 @@ def supported(nmax: int, dtype, kinds, device) -> bool:
         and nmax % BLOCK == 0
         and nmax <= MAX_N
     )
-
-
-def library_path() -> Path:
-    """The shared library for the current source, compiled if missing.
-    The compiler's report (registers, shared memory, spills) is kept next
-    to it as ``.log``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libfused_gram_cholesky_{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {_SRC} (exit {proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(library_path()))
-        lib.dsm_fused_gram_cholesky.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
-        lib.dsm_fused_gram_cholesky.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def fused_gram_cholesky_reference(x, n, logl, logsigma, noise, eps: float = EPS):
@@ -133,10 +92,10 @@ def fused_gram_cholesky(x, n, logl, logsigma, noise, eps: float = EPS):
     out = torch.empty((L, N, N), dtype=torch.float32, device=x.device)
     if L == 0:
         return out
-    lib = _lib()
+    fn = build.load("fused_gram_cholesky", "dsm_fused_gram_cholesky", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dsm_fused_gram_cholesky(
+        err = fn(
             x.data_ptr(), n.data_ptr(), logl.data_ptr(), logsigma.data_ptr(),
             noise.data_ptr(), out.data_ptr(), L, N, D, eps, stream)
     if err != 0:

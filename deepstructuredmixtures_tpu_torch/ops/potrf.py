@@ -1,0 +1,99 @@
+"""In-place batched blocked Cholesky: the CUDA kernel
+``csrc/blocked_cholesky.cu`` and its plain PyTorch version.
+
+Counterpart of ``deepstructuredmixtures_tpu/ops/pallas_potrf.py``
+(``hbm_blocked_cholesky``, the Pallas TPU kernel). It factors the buckets
+whose factors the hybrid store keeps (``fit.streamed_leaf_factors``): every
+bucket above the fused kernel's domain, on CUDA in float32. Its output
+contract is stricter than the TPU kernel's: the strict upper triangle is
+exactly 0 (the TPU kernel's ``tril=True``), identity-padded rows and
+columns stay the identity, and a matrix that is not positive definite
+comes back non-finite without raising (as ``ops.cholesky.cholesky_nosym``
+does). Any ``G >= 1`` and any ``n``: the ragged last panel is masked, so
+the bucket widths of ``plan.bucketize`` (multiples of 8 above 1024) need no
+extra padding. The kernel's design note is at the top of the CUDA source.
+
+The kernel is built and loaded by ``ops/build.py``. On a CPU tensor
+:func:`blocked_cholesky` runs :func:`blocked_cholesky_reference`; on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .fused_chol import MAX_N
+
+#: panel width of the kernel and of its plain version
+NB = 64
+
+#: kernel launches so far (one per call of the CUDA path)
+LAUNCHES = 0
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def supported(nmax: int, dtype, device) -> bool:
+    """Whether the hybrid fit factors a bucket with this kernel: a CUDA
+    device, float32, and ``nmax`` above the fused kernel's domain
+    (``fused_chol.MAX_N``)."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and nmax > MAX_N)
+
+
+def blocked_cholesky_reference(a):
+    """Plain PyTorch version with the kernel's blocking: per ``NB``-wide
+    panel, the diagonal block by ``torch.linalg.cholesky_ex`` (a failed
+    block becomes NaN, so a matrix that is not positive definite comes
+    back non-finite), the panel by ``solve_triangular``, the trailing
+    update by ``baddbmm``; then ``tril``. Reads the lower triangle of the
+    diagonal blocks only. Returns a new tensor in the dtype of ``a``."""
+    n = a.shape[-1]
+    out = a.clone()
+    for s in range(0, n, NB):
+        e = min(s + NB, n)
+        L11, info = torch.linalg.cholesky_ex(out[:, s:e, s:e])
+        L11 = torch.where((info == 0)[:, None, None], L11, torch.nan)
+        out[:, s:e, s:e] = L11
+        if e < n:
+            L21 = torch.linalg.solve_triangular(L11.mT, out[:, e:, s:e],
+                                                upper=True, left=False)
+            out[:, e:, s:e] = L21
+            out[:, e:, e:].baddbmm_(L21, L21.mT, alpha=-1.0)
+    return torch.tril(out)
+
+
+def blocked_cholesky(a):
+    """Lower Cholesky factors of the SPD matrices ``a [G, n, n]``, written
+    over ``a``; returns ``a``. Only the lower triangle of ``a`` is read.
+
+    In place so that the hybrid fit factors the gram buffer it allocated
+    instead of a second one (up to 1 GiB per leaf at n = 16232). On CUDA
+    ``a`` must be a contiguous float32 tensor; a CPU tensor of any float
+    dtype takes the plain version."""
+    global LAUNCHES
+    if a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"a must be [G, n, n], got shape {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return a.copy_(blocked_cholesky_reference(a))
+    if a.device.type != "cuda":
+        raise ValueError(f"blocked_cholesky: unsupported device {a.device}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"a must be float32, got {a.dtype}")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    G, n, _ = a.shape
+    if G > 65535:
+        raise ValueError(f"G={G} exceeds the launch grid's 65535")
+    if G == 0 or n == 0:
+        return a
+    fn = build.load("blocked_cholesky", "dsm_blocked_cholesky", _ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), G, n, stream)
+    if err != 0:
+        raise RuntimeError(f"blocked_cholesky: CUDA error {err} at launch")
+    LAUNCHES += 1
+    return a

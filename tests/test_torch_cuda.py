@@ -1,5 +1,6 @@
-"""The fused gram+Cholesky CUDA kernel against its plain PyTorch version,
-on the card. Skips without a CUDA device (the kernel has no CPU mode).
+"""The CUDA kernels (fused gram+Cholesky, blocked Cholesky) against their
+plain PyTorch versions and float64, on the card. Skips without a CUDA
+device (a kernel has no CPU mode).
 
 This file imports no JAX, so it also runs where JAX is not installed, as
 on the GPU machine:
@@ -9,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from deepstructuredmixtures_tpu_torch.ops import fused_chol
+from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
 
 TOL = 5e-4  # max abs factor error, the bound of tests/test_pallas_chol.py
+POTRF_TOL = 5e-4  # the bound of tests/test_pallas_potrf.py
 
 
 def kernel_inputs(L, N, tied, seed):
@@ -43,6 +45,32 @@ def check_contract(out, n):
     assert not np.triu(out, 1).any()
 
 
+def spd_batch(g, n, seed=0, noise=0.3):
+    """``(A [g, n, n] float32, valid)``: IsoSE grams of sorted uniform
+    points (lengthscale² 0.02, noise 0.3, as ``tests/test_pallas_potrf.py``
+    makes them); for ``g > 1`` the last matrix is identity-padded beyond
+    ``valid = n - n // 4`` rows."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((g, n, n), np.float32)
+    valid = n - (n // 4 if g > 1 else 0)
+    for l in range(g):
+        nv = n if l < g - 1 else valid
+        x = np.sort(rng.uniform(0, 1, nv))
+        d2 = (x[:, None] - x[None, :]) ** 2
+        out[l, :nv, :nv] = np.exp(-0.5 * d2 / 0.02) + noise * np.eye(nv)
+        out[l, range(nv, n), range(nv, n)] = 1.0
+    return out, valid
+
+
+def check_potrf_contract(out, valid):
+    """Zero strict upper triangle; the last matrix's identity padding kept
+    exactly."""
+    n = out.shape[-1]
+    assert not np.triu(out, 1).any()
+    np.testing.assert_array_equal(out[-1, valid:, valid:], np.eye(n - valid))
+    assert not out[-1, valid:, :valid].any()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -68,3 +96,23 @@ def test_cuda_kernel_matches_plain(cuda_device, L, N, tied):
     for l in range(L):
         k = n[l]
         assert np.abs(out_np[l, :k, :k] - ref_np[l, :k, :k]).max() < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n", [(3, 200), (2, 1040), (1, 2048)])
+def test_cuda_blocked_cholesky_matches_plain(cuda_device, g, n):
+    A, valid = spd_batch(g, n, seed=n)
+    a = torch.from_numpy(A).to(cuda_device)
+    plain = potrf.blocked_cholesky_reference(a).cpu().numpy()
+    before = potrf.LAUNCHES
+    out = potrf.blocked_cholesky(a.clone())
+    torch.cuda.synchronize()
+    assert potrf.LAUNCHES == before + 1
+    out = out.cpu().numpy()
+    check_potrf_contract(out, valid)
+    for l in range(g):
+        ref = np.linalg.cholesky(A[l].astype(np.float64))
+        assert np.abs(out[l] - ref).max() < POTRF_TOL
+    assert np.abs(out - plain).max() < POTRF_TOL
+    with pytest.raises(TypeError):
+        potrf.blocked_cholesky(a.double())

@@ -10,8 +10,13 @@ noise -1, seed 0, float32) on ``--n`` points, fits it once with
 runs under ``torch.profiler`` (CPU + CUDA activities): one more hybrid
 fit, and one cached ``predict`` at T=1 and T=2000. For each, one JSON
 line: the wall-clock, the device time summed over all kernels, the
-blocked Cholesky kernel's share (its three CUDA kernels), and the kernels
-with the most device time. Needs a CUDA device; prints nothing else.
+blocked Cholesky kernel's share, split by its CUDA kernels (first diagonal
+block of an outer panel / panel step with the next diagonal block /
+lookahead update / trailing update) with the count of panel steps, and the
+kernels with the most device time. The blocked kernel overlaps its serial
+chain with its trailing update on two streams, so the sum of its kernels'
+times exceeds the time it holds the card. Needs a CUDA device; prints
+nothing else.
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ import time
 
 import numpy as np
 
-#: the CUDA kernels of csrc/blocked_cholesky.cu
-BLOCKED = ("diag_factor_kernel", "panel_solve_kernel", "trailing_update_kernel")
+#: the CUDA kernels of csrc/blocked_cholesky.cu, by what they do
+BLOCKED = {"diagonal": "diag_inv_kernel", "panel": "panel_kernel",
+           "lookahead_update": "lookahead_update_kernel",
+           "trailing_update": "trailing_update_kernel"}
 
 
 def _device_us(evt):
@@ -48,10 +55,14 @@ def profile(label, fn, top=12):
             if _device_us(e) > 0 and not e.key.startswith("aten::")]
     rows.sort(key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
-    blocked = sum(r[2] for r in rows if any(k in r[0] for k in BLOCKED))
+    split = {part: {"ms": sum(r[2] for r in rows if name in r[0]) / 1e3,
+                    "launches": sum(r[1] for r in rows if name in r[0])}
+             for part, name in BLOCKED.items()}
     print(json.dumps({
         "profile": label, "wall_s": wall, "device_kernels_ms": total / 1e3,
-        "blocked_cholesky_ms": blocked / 1e3,
+        "blocked_cholesky_ms": sum(v["ms"] for v in split.values()),
+        "blocked_cholesky_split": split,
+        "panel_steps": split["diagonal"]["launches"] + split["panel"]["launches"],
         "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3}
                 for k, c, us in rows[:top]],
     }), flush=True)

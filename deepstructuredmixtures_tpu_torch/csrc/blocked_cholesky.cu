@@ -1,4 +1,6 @@
-// In-place batched lower Cholesky of SPD matrices, blocked and right-looking.
+// In-place batched lower Cholesky of SPD matrices: two-level blocking, a
+// short serial chain, and a lookahead that hides the chain behind the big
+// update.
 //
 // Replaces the Pallas TPU kernel `hbm_blocked_cholesky` of
 // deepstructuredmixtures_tpu/ops/pallas_potrf.py (kernel body
@@ -9,343 +11,923 @@
 //   * the strict upper triangle comes back exactly 0 (the TPU kernel's
 //     `tril=True`);
 //   * identity-padded rows and columns (row i of the identity for
-//     i >= the valid size) stay exactly the identity, because every update
-//     they take is a product with exact zeros;
+//     i >= the valid size) stay exactly the identity: every update they
+//     take is a product with exact zeros, the inverse of an identity block
+//     is the identity exactly, and the diagonal is the exact square root;
 //   * a matrix that is not positive definite takes the square root of a
-//     negative pivot, and the NaN spreads through the rest: the result is
-//     non-finite, nothing raises;
-//   * any n >= 1 and any G >= 1 (the TPU kernel needed n % 256 == 0 and
-//     G <= 4 for its VMEM scratch); a ragged last panel is masked.
+//     negative pivot, and the NaN spreads through the rest of that matrix
+//     (through the inverse of its diagonal block too) and through no other
+//     matrix: the result is non-finite, nothing raises;
+//   * any n >= 1 and any 1 <= G <= 65535; ragged edges are masked.
 //
 // What bounds it on an H100. A matrix of n rows needs n^3/3 floating-point
-// operations (n^3/6 FMAs) on 2 n^2 * 4 bytes (read once, written once). At
-// 67 TFLOP/s (float32 FMA outside the tensor cores) against 3.35 TB/s that
-// is compute-bound at every bucket size: the 23 buckets of the N=100k
-// headline tree hold 19.9 TFLOP of padded work, 0.297 s at peak, against
-// about 16 ms for their bytes. Tensor cores are ruled out: the trailing
-// update cancels O(|K|) down to O(noise), and a reduced-precision pass gave
-// negative diagonals on the TPU (ops/pallas_chol.py:204-206), so TF32 is
-// not used.
+// operations on 2 n^2 * 4 bytes. At 67 TFLOP/s (float32 FMA outside the
+// tensor cores) against 3.35 TB/s the factorization is operation-bound at
+// every bucket size, but only if the trailing update is: with a rank-k
+// update every trailing element is read and written once per k columns,
+// (n^3/3) * 4 / k bytes in all. At k = 64 that traffic took longer than
+// the operations; at k = 256 it is a quarter of it (6.6 ms of 21 ms at
+// n = 16232). Beside that stands the serial chain: the diagonal block of a
+// step can only be factored after the step before it, and it costs
+// microseconds whatever n is. Below n of about 5000 the chain, not the
+// update, is what the call takes.
 //
-// The design. The hybrid fit factors one leaf at a time for n >= 4096, so
-// the parallelism has to come from the tiles of one matrix. For each
-// 64-wide panel s = 0, 64, ... the host launches on PyTorch's stream:
-//   a. `diag_factor_kernel`, one block per matrix: the 64 x 64 diagonal
-//      block in shared memory, factored by a 2 x 2 split into 32-wide
-//      sub-blocks, each factored by one warp in registers (one row per
-//      lane, columns broadcast by shuffle, the pivot by rsqrt); the upper
-//      part of the block is written as 0. This is the serial critical
-//      path, the same one that bounded the TPU kernel
-//      (pallas_potrf.py:40-54): tens of microseconds per panel;
-//   b. `panel_solve_kernel`, one block per (matrix, 64 rows below the
-//      panel): L21 = A21 L11^{-T} by substitution, one row per thread in
-//      registers, L11 and the reciprocals of its diagonal broadcast from
-//      shared memory; the block also writes
-//      0 over the mirror image of its rows in the strict upper triangle;
-//   c. `trailing_update_kernel`, one block per (matrix, 128 x 128 tile on
-//      or below the diagonal of the trailing matrix): A22 -= L21 L21^T as
-//      a float32-FMA SYRK, the two 128 x 64 panel slices staged in shared
-//      memory (k-major, padded stride, coalesced loads and conflict-free
-//      stores) and 8 x 8 outputs per thread in registers, read from
-//      shared memory as float4 (4 loads per 64 FMAs); only elements on or
-//      below the diagonal are written, 4 at a time where n % 4 == 0.
-// Step c is nearly all of the work. With a rank-64 update each trailing
-// element is read and written once per panel, so the update moves about
-// (n^3/3) / 16 bytes in all, on the order of the FLOP bound at 3.35 TB/s:
-// a wider panel, wgmma with 3xTF32 splitting, and a lookahead that
-// overlaps step a with step c are left for later work.
+// The design.
+//   * Outer panels of NBO = 256 columns, inner steps of NB = 64 columns.
+//     An inner step touches only its own 64 columns (left-looking inside
+//     the outer panel), so between two rank-256 updates only an n x 256
+//     slab moves, and it stays in L2.
+//   * The diagonal block (`diag_factor_inv`, 256 threads): 64 x 64 in
+//     shared memory, factored by a 2 x 2 split into 32-wide sub-blocks
+//     (one warp, one row per lane, the pivot by rsqrt, the diagonal itself
+//     the exact sqrt). It also returns inv(L11), as the TPU kernel's
+//     `_chol_trinv` does: the two 32-wide inverses by substitution (one
+//     column per lane) on warps that run beside the factoring warp, the
+//     off-diagonal block of the inverse as one more substitution. inv(L11)
+//     goes to a scratch of 2 x 64 x 64 floats per matrix that the wrapper
+//     allocates. `diag_inv_kernel` runs it for the first block of an outer
+//     panel; the later blocks are factored inside the panel kernel.
+//   * `panel_kernel`, one block per (matrix, 64 rows below the diagonal
+//     block): T = A21 - L[rows, S:s] L[cols, S:s]^T (the left-looking
+//     update from the earlier inner steps of this outer panel, its operand
+//     blocks prefetched through registers), then L21 = T inv(L11)^T, a
+//     product and no substitution; the block zeroes the mirror image of
+//     its rows in the strict upper triangle, and if its rows hold a later
+//     diagonal block of the same outer panel it brings that block up to
+//     date (A[r, r] -= L21 L21^T). Block 0 holds the next step's diagonal
+//     block, final by then: it factors and inverts it on the spot, so an
+//     inner step is one launch.
+//   * The rank-256 update A22 -= L21 L21^T, one block per 128 x 128 tile
+//     on or below the diagonal: the tile's 8 x 8 outputs per thread stay
+//     in registers over the whole k = 256 while the two panel slices
+//     stream through a ring of three shared-memory stages filled by
+//     cp.async (32 columns per stage, row stride 36 floats so that the
+//     float4 reads along k fall on distinct banks); the C tile is fetched
+//     by cp.async into shared memory behind the first stages, so the
+//     epilogue waits for no load from device memory; float32 FMA.
+//   * Lookahead on a second stream. The update of outer step K is split:
+//     `lookahead_update_kernel` updates the 256 columns of panel K+1 (in
+//     64-row tiles when 128-row ones would not fill the card) and runs
+//     with the factorization of panel K+1 on a high-priority side stream,
+//     while `trailing_update_kernel` updates the rest on the caller's
+//     stream. Events order them (the rest waits for its panel, the next
+//     lookahead waits for the rest before it), the side stream starts
+//     after the caller's stream and the caller's stream waits for it at
+//     the end, so the call as a whole is one unit of work on the caller's
+//     stream. The chain is hidden as long as the rest of an update takes
+//     longer than the next panel.
+//
+// What was tried on an H100 (700 W) and what it gave is in PERF.md. In
+// short: 256-wide outer panels, the inverse in place of the substitution
+// and the lookahead took (1, 16232) from 86.7 to 65 ms; one block per SM
+// with 254 registers instead of two with spills, to 53; the C tile staged
+// by cp.async, to 45. The diagonal block went from 31 to 14 microseconds
+// (float4 loads, no predicates, the column broadcast through shared
+// memory instead of shuffles, the square root off the chain); factoring
+// it inside the panel kernel and 64-row lookahead tiles took (1, 4576)
+// from 3.3 to 2.9 ms. Wider update tiles (8 x 16 outputs per thread), a
+// two-stage 64-column ring, software-pipelined fragment loads and loops
+// in place of unrolled code were each slower or no faster.
+//
+// Tensor cores: see the note above `update_tile`.
 //
 // Plain C interface for ctypes (built with nvcc -shared, no PyTorch
-// headers): dsm_blocked_cholesky launches on the given stream, checks
-// cudaGetLastError() after every launch and returns the first error
-// (0 on success).
+// headers): dsm_blocked_cholesky launches on the given stream (and on its
+// own side stream, joined before it returns to the caller's stream),
+// checks cudaGetLastError() after every launch and returns the first error
+// (0 on success). It allocates no device memory: `work` is G * 2 * 64 * 64
+// floats from the caller.
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int NB = 64;               // panel width
-constexpr int SUB = 32;              // warp-factored sub-block of a panel
-constexpr int LDD = NB + 1;          // padded shared row stride
+constexpr int NB = 64;               // inner step: width of a diagonal block
+constexpr int NBO = 256;             // outer panel: rank of the big update
+constexpr int SUB = 32;              // warp-factored sub-block of a diagonal block
+constexpr int LDD = NB + 1;          // padded shared row stride (diagonal kernel)
 constexpr int DIAG_THREADS = 256;
-constexpr int ROWS = 64;             // panel-solve rows per block
-constexpr int TILE = 128;            // trailing-update output tile edge
-constexpr int TT = 16;               // threads per tile edge: 8 x 8 outputs each
-constexpr int LDT = TILE + 4;        // padded shared stride of a staged slice
-constexpr int UPDATE_THREADS = TT * TT;
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(TILE == 8 * TT, "8 x 8 outputs per thread");
-static_assert(NB % SUB == 0, "the panel splits into warp sub-blocks");
-static_assert(NB % 8 == 0 && TILE % 16 == 0, "staging covers whole units");
+constexpr int PANEL_THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int LDP = NB + 4;          // shared row stride of the panel kernel
+constexpr int TILE = 128;            // update output tile edge
+constexpr int KC = 32;               // columns of the panel per ring stage
+constexpr int LDK = KC + 4;          // shared row stride of a stage
+constexpr int STAGES = 3;
+constexpr int UPDATE_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int STAGE_FLOATS = 2 * TILE * LDK;
+constexpr int LDC = TILE + 4;         // shared row stride of the staged C tile
+constexpr size_t UPDATE_SMEM =
+    (size_t)(STAGES * STAGE_FLOATS + TILE * LDC) * sizeof(float);
+static_assert(NB == 2 * SUB, "the diagonal block is a 2 x 2 split");
+static_assert(NBO % NB == 0 && NBO % KC == 0 && NBO == 2 * TILE,
+              "the lookahead is two tile columns");
+static_assert(LDP % 32 == 4 && LDK % 32 == 4, "float4 reads along k: 8 rows, 32 banks");
 
-__global__ void __launch_bounds__(DIAG_THREADS)
-diag_factor_kernel(float* __restrict__ a, int n, int s, int w) {
-  __shared__ float D[NB * LDD];
-  __shared__ float rd[NB];  // reciprocals of the factor's diagonal
-  float* A = a + (size_t)blockIdx.x * n * n;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// ---------------------------------------------------------------- diagonal
 
-  // the w x w diagonal block (lower triangle), identity beyond w
-  for (int e = tid; e < NB * NB; e += DIAG_THREADS) {
-    const int r = e / NB, c = e % NB;
-    float v;
-    if (r < w && c < w)
-      v = (c <= r) ? A[(size_t)(s + r) * n + s + c] : 0.0f;
-    else
-      v = (r == c) ? 1.0f : 0.0f;
-    D[r * LDD + c] = v;
-  }
-  __syncthreads();
-
-  for (int p = 0; p < NB; p += SUB) {
-    // 1. warp 0 factors the sub-block D[p:p+32, p:p+32]; lane i holds row p+i
-    if (warp == 0) {
-      float v[SUB];
-      float* row = D + (p + lane) * LDD + p;
+// One warp, lane = row: the 32 x 32 block at D[p.., p..] factored in
+// registers (its strict upper part written back as 0); the reciprocal
+// diagonal goes to rd[p..]. Column j is broadcast through shared memory:
+// every lane stores its element of the column, unscaled, into the
+// column's own place in D and reads the others back (all lanes the same
+// address); that measured 2.6 times faster than one shuffle per element.
+// The rows below a pivot scale by one rsqrt instead of a square root and
+// a division on the serial chain, and the update takes the unscaled
+// column times rsqrt^2, so that it does not wait for the scaled one; the
+// diagonal itself is the exact square root, off the chain, so that
+// identity padding stays exactly 1. The updates are not predicated on the
+// lower triangle: what a lane computes above its diagonal is never read
+// by another lane and is dropped at the end. Not inlined, so that the
+// second call finds the code in the instruction cache.
+__device__ __noinline__ void warp_factor32(float* D, float* rd, int p, int lane) {
+  float v[SUB];
+  float dj = 1.0f;  // this lane's diagonal element
+  float* row = D + (p + lane) * LDD + p;
 #pragma unroll
-      for (int c = 0; c < SUB; ++c) v[c] = row[c];
+  for (int c = 0; c < SUB; ++c) v[c] = row[c];
 #pragma unroll
-      for (int j = 0; j < SUB; ++j) {
-        // the rows below scale by one rsqrt instead of a square root and
-        // a division on the serial chain (as the TPU kernel's _sweep
-        // does); the diagonal itself is the exact square root, off the
-        // chain, so that identity padding stays exactly 1
-        const float pivot = __shfl_sync(FULL, v[j], j);
-        const float rj = rsqrtf(pivot);
-        if (lane == j) v[j] = sqrtf(pivot);
-        if (lane > j) v[j] = v[j] * rj;
-        if (lane == j) rd[p + j] = rj;
+  for (int j = 0; j < SUB; ++j) {
+    row[j] = v[j];
+    __syncwarp();
+    const float* col = D + p * LDD + p + j;  // col[c * LDD]: row c of column j
+    const float pivot = col[j * LDD];
+    float l[SUB];
 #pragma unroll
-        for (int c = j + 1; c < SUB; ++c) {
-          const float lcj = __shfl_sync(FULL, v[j], c);
-          if (lane >= c) v[c] -= v[j] * lcj;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < SUB; ++c) row[c] = (c <= lane) ? v[c] : 0.0f;
+    for (int c = j + 1; c < SUB; ++c) l[c] = col[c * LDD];
+    const float rj = rsqrtf(pivot);
+    if (lane == j) {
+      dj = sqrtf(pivot);
+      rd[p + j] = rj;
     }
-    __syncthreads();
-    const int m = NB - p - SUB;  // rows of the block below the sub-block
-    if (m > 0) {
-      // 2. those rows: X = A21 Lpp^{-T}, one row per thread
-      if (tid < m) {
-        float v[SUB];
-        float* row = D + (p + SUB + tid) * LDD + p;
+    const float t = v[j] * (rj * rj);
+    v[j] *= rj;
 #pragma unroll
-        for (int c = 0; c < SUB; ++c) v[c] = row[c];
-#pragma unroll
-        for (int j = 0; j < SUB; ++j) {
-          const float x = v[j] * rd[p + j];
-          v[j] = x;
-#pragma unroll
-          for (int c = j + 1; c < SUB; ++c) v[c] -= x * D[(p + c) * LDD + p + j];
-        }
-#pragma unroll
-        for (int c = 0; c < SUB; ++c) row[c] = v[c];
-      }
-      __syncthreads();
-      // 3. the rest of the block: D22 -= X X^T, lower triangle
-      for (int e = tid; e < m * m; e += DIAG_THREADS) {
-        const int i = e / m, j = e % m;
-        if (j <= i) {
-          const float* xi = D + (p + SUB + i) * LDD + p;
-          const float* xj = D + (p + SUB + j) * LDD + p;
-          float acc = 0.0f;
-#pragma unroll
-          for (int q = 0; q < SUB; ++q) acc += xi[q] * xj[q];
-          D[(p + SUB + i) * LDD + p + SUB + j] -= acc;
-        }
-      }
-      __syncthreads();
-    }
+    for (int c = j + 1; c < SUB; ++c) v[c] -= t * l[c];
   }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < SUB; ++c) row[c] = c < lane ? v[c] : (c == lane ? dj : 0.0f);
+}
 
-  // the factor of the w x w block, its strict upper part as 0
-  for (int e = tid; e < w * w; e += DIAG_THREADS) {
-    const int r = e / w, c = e % w;
-    A[(size_t)(s + r) * n + s + c] = (c <= r) ? D[r * LDD + c] : 0.0f;
+// One thread: x = L^{-1} b for the 32 x 32 lower L at D[p.., p..] with the
+// reciprocal diagonal rd[p..], by forward substitution. b[c] is
+// scale * src[c * sstride], or column `unit` of the identity where src is
+// null; x[j] goes to out[j * ostride]. Every lane of a warp reads the same
+// element of L (a broadcast). Not inlined: four calls share the code.
+__device__ __noinline__ void trsolve32(const float* D, const float* rd, int p,
+                                       const float* src, int sstride, float scale,
+                                       int unit, float* out, int ostride) {
+  float b[SUB];
+#pragma unroll
+  for (int c = 0; c < SUB; ++c)
+    b[c] = src ? scale * src[c * sstride] : (c == unit ? 1.0f : 0.0f);
+#pragma unroll
+  for (int j = 0; j < SUB; ++j) {
+    const float x = b[j] * rd[p + j];
+    out[j * ostride] = x;
+    float l[SUB];  // the column's loads ahead of its FMAs
+#pragma unroll
+    for (int c = j + 1; c < SUB; ++c) l[c] = D[(p + c) * LDD + p + j];
+#pragma unroll
+    for (int c = j + 1; c < SUB; ++c) b[c] -= x * l[c];
   }
 }
 
-__global__ void __launch_bounds__(ROWS)
-panel_solve_kernel(float* __restrict__ a, int n, int s) {
-  __shared__ float Lp[NB * LDD];    // L11
-  __shared__ float P[ROWS * LDD];   // this block's rows of the panel
-  __shared__ float rd[NB];          // reciprocals of L11's diagonal
-  float* A = a + (size_t)blockIdx.y * n * n;
-  const int tid = threadIdx.x;
-  const int r0 = s + NB + blockIdx.x * ROWS;  // first row of this block
-  const int rows = min(ROWS, n - r0);
+// Shared memory of a block that factors a diagonal block
+struct DiagSmem {
+  float D[NB * LDD];    // the block (lower triangle, identity padding), then its factor
+  float Inv[NB * LDD];  // inv(L11)
+  float Y[SUB * (SUB + 1)];
+  float rd[NB];         // reciprocals of the factor's diagonal
+};
 
-  for (int e = tid; e < NB * NB; e += ROWS) {
-    const int r = e / NB, c = e % NB;
-    Lp[r * LDD + c] = (c <= r) ? A[(size_t)(s + r) * n + s + c] : 0.0f;
-  }
-  for (int e = tid; e < rows * NB; e += ROWS) {
-    const int r = e / NB, c = e % NB;
-    P[r * LDD + c] = A[(size_t)(r0 + r) * n + s + c];
-  }
-  __syncthreads();
-  for (int j = tid; j < NB; j += ROWS) rd[j] = 1.0f / Lp[j * LDD + j];
+// All 256 threads of a block: the 64 x 64 block in sm.D factored in place
+// (strict upper part 0) and its inverse into sm.Inv. Starts and ends with
+// a barrier.
+__device__ __forceinline__ void diag_factor_inv(DiagSmem& sm, int tid) {
+  float* D = sm.D;
+  float* Inv = sm.Inv;
+  float* Y = sm.Y;
+  float* rd = sm.rd;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   __syncthreads();
 
-  if (tid < rows) {
-    float v[NB];
-    float* row = P + tid * LDD;
+  if (warp == 0) warp_factor32(D, rd, 0, lane);
+  __syncthreads();
+
+  if (warp == 0) {
+    // L10 = D10 L00^{-T}: lane = row of D10, solved in place
+    float* row = D + (SUB + lane) * LDD;
+    trsolve32(D, rd, 0, row, 1, 1.0f, 0, row, 1);
+  } else if (warp == 1) {
+    // inv(L00): lane = column
+    trsolve32(D, rd, 0, nullptr, 0, 1.0f, lane, Inv + lane, LDD);
+  } else if (warp == 2) {
 #pragma unroll
-    for (int c = 0; c < NB; ++c) v[c] = row[c];
+    for (int c = 0; c < SUB; ++c) Inv[c * LDD + SUB + lane] = 0.0f;
+  }
+  __syncthreads();
+
+  // D11 -= L10 L10^T: column `lane` of rows warp, warp + 8, ... per thread
+  {
+    float acc[SUB / 8];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float x = v[j] * rd[j];  // multiplies on the serial chain
-      v[j] = x;
+    for (int m = 0; m < SUB / 8; ++m) acc[m] = 0.0f;
+    const float* xj = D + (SUB + lane) * LDD;
+#pragma unroll 8
+    for (int q = 0; q < SUB; ++q) {
+      const float x = xj[q];
 #pragma unroll
-      for (int c = j + 1; c < NB; ++c) v[c] -= x * Lp[c * LDD + j];
+      for (int m = 0; m < SUB / 8; ++m) acc[m] += D[(SUB + warp + 8 * m) * LDD + q] * x;
     }
 #pragma unroll
-    for (int c = 0; c < NB; ++c) row[c] = v[c];
+    for (int m = 0; m < SUB / 8; ++m)
+      D[(SUB + warp + 8 * m) * LDD + SUB + lane] -= acc[m];
   }
   __syncthreads();
 
-  for (int e = tid; e < rows * NB; e += ROWS) {
-    const int r = e / NB, c = e % NB;
-    A[(size_t)(r0 + r) * n + s + c] = P[r * LDD + c];
+  if (warp == 0) {
+    warp_factor32(D, rd, SUB, lane);
+  } else if (warp >= 4) {
+    // Y = L10 inv(L00), beside the factoring warp
+    for (int e = tid - 128; e < SUB * SUB; e += 128) {
+      const int r = e / SUB, c = e % SUB;
+      const float* x = D + (SUB + r) * LDD;
+      float acc = 0.0f;
+#pragma unroll
+      for (int q = 0; q < SUB; ++q) acc += x[q] * Inv[q * LDD + c];
+      Y[r * (SUB + 1) + c] = acc;
+    }
   }
-  // the mirror image in the strict upper triangle: rows s..s+NB-1,
-  // columns r0..r0+rows-1
-  for (int e = tid; e < NB * rows; e += ROWS) {
+  __syncthreads();
+
+  if (warp == 0) {
+    // inv(L11): lane = column
+    trsolve32(D, rd, SUB, nullptr, 0, 1.0f, lane, Inv + SUB * LDD + SUB + lane, LDD);
+  } else if (warp == 1) {
+    // the block below the diagonal of the inverse: -inv(L11) L10 inv(L00)
+    trsolve32(D, rd, SUB, Y + lane, SUB + 1, -1.0f, 0, Inv + SUB * LDD + lane, LDD);
+  }
+  __syncthreads();
+}
+
+// The factor of the w x w diagonal block at (s, s) from sm.D to the
+// matrix, and its inverse from sm.Inv to `work` (64 x 64 floats)
+__device__ __forceinline__ void diag_store(const DiagSmem& sm, float* A, float* work, int n,
+                                           int s, int w, int tid) {
+  if ((n % 4) == 0 && w == NB) {
+    for (int e = tid; e < NB * NB / 4; e += DIAG_THREADS) {
+      const int r = e / (NB / 4), c = 4 * (e % (NB / 4));
+      const float* d = sm.D + r * LDD + c;
+      *reinterpret_cast<float4*>(A + (size_t)(s + r) * n + s + c) =
+          make_float4(d[0], d[1], d[2], d[3]);
+    }
+  } else {
+    for (int e = tid; e < w * w; e += DIAG_THREADS) {
+      const int r = e / w, c = e % w;
+      A[(size_t)(s + r) * n + s + c] = sm.D[r * LDD + c];
+    }
+  }
+  float4* W = reinterpret_cast<float4*>(work);
+  for (int e = tid; e < NB * NB / 4; e += DIAG_THREADS) {
+    const float* d = sm.Inv + (e / (NB / 4)) * LDD + 4 * (e % (NB / 4));
+    W[e] = make_float4(d[0], d[1], d[2], d[3]);
+  }
+}
+
+// The first diagonal block of an outer panel (the later ones are factored
+// by the panel kernel)
+__global__ void __launch_bounds__(DIAG_THREADS)
+diag_inv_kernel(float* __restrict__ a, float* __restrict__ work, int n, int s, int w) {
+  __shared__ DiagSmem sm;
+  float* A = a + (size_t)blockIdx.x * n * n;
+  const int tid = threadIdx.x;
+
+  // the w x w diagonal block (lower triangle), identity beyond w
+  if ((n % 4) == 0 && w == NB) {
+    for (int e = tid; e < NB * NB / 4; e += DIAG_THREADS) {
+      const int r = e / (NB / 4), c = 4 * (e % (NB / 4));
+      const float4 v = *reinterpret_cast<const float4*>(A + (size_t)(s + r) * n + s + c);
+      float* d = sm.D + r * LDD + c;
+      d[0] = (c + 0 <= r) ? v.x : 0.0f;
+      d[1] = (c + 1 <= r) ? v.y : 0.0f;
+      d[2] = (c + 2 <= r) ? v.z : 0.0f;
+      d[3] = (c + 3 <= r) ? v.w : 0.0f;
+    }
+  } else {
+    for (int e = tid; e < NB * NB; e += DIAG_THREADS) {
+      const int r = e / NB, c = e % NB;
+      float v;
+      if (r < w && c < w)
+        v = (c <= r) ? A[(size_t)(s + r) * n + s + c] : 0.0f;
+      else
+        v = (r == c) ? 1.0f : 0.0f;
+      sm.D[r * LDD + c] = v;
+    }
+  }
+  diag_factor_inv(sm, tid);
+  diag_store(sm, A, work + (size_t)blockIdx.x * 2 * NB * NB, n, s, w, tid);
+}
+
+// ------------------------------------------------------------------- panel
+
+// 64 x 64 elements A[row0 + r][col0 + c] into registers, four float4 per
+// thread (0 for rows at or beyond `rlimit`; float4 loads where the rows
+// start on 16 bytes), and from there to dst[r * LDP + c]: in two steps, so
+// that the next block's loads are in flight while this one is multiplied
+__device__ __forceinline__ void gload64(float4 (&v)[4], const float* A, int n, int row0,
+                                        int rlimit, int col0, bool vec, int tid) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = tid + q * PANEL_THREADS;
+    const int r = idx / (NB / 4), c = 4 * (idx % (NB / 4));
+    v[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < rlimit) {
+      const float* src = A + (size_t)(row0 + r) * n + col0 + c;
+      if (vec) {
+        v[q] = *reinterpret_cast<const float4*>(src);
+      } else {
+        v[q] = make_float4(src[0], src[1], src[2], src[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void sstore64(float* dst, const float4 (&v)[4], int tid) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = tid + q * PANEL_THREADS;
+    *reinterpret_cast<float4*>(dst + (idx / (NB / 4)) * LDP + 4 * (idx % (NB / 4))) = v[q];
+  }
+}
+
+// acc[i][j] += sum_k P[(ty + 16 i)][k] Q[(tx + 16 j)][k] over 64 k
+__device__ __forceinline__ void mma64(const float* P, const float* Q, int ty, int tx,
+                                      float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < NB; k += 4) {
+    float4 p[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = *reinterpret_cast<const float4*>(Q + (tx + 16 * j) * LDP + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] += p[i].x * q[j].x;
+        acc[i][j] += p[i].y * q[j].y;
+        acc[i][j] += p[i].z * q[j].z;
+        acc[i][j] += p[i].w * q[j].w;
+      }
+  }
+}
+
+union PanelSmem {
+  float pq[2 * NB * LDP];  // the two operand blocks of the products
+  DiagSmem diag;           // block 0 afterwards
+};
+
+// The rows below the diagonal block [s, s+64) of the outer panel that
+// starts at column S; `pe` is the end of that outer panel. `work` holds
+// inv(L11) of this step in one half of the matrix's scratch; block 0
+// writes the next step's into the other half.
+__global__ void __launch_bounds__(PANEL_THREADS)
+panel_kernel(float* __restrict__ a, float* __restrict__ work, int n, int S, int s, int pe) {
+  __shared__ __align__(16) PanelSmem sm;
+  float* P = sm.pq;
+  float* Q = sm.pq + NB * LDP;
+  float* A = a + (size_t)blockIdx.y * n * n;
+  // inv(L11) of this step in one half of the matrix's scratch; the next
+  // step's goes to the other half
+  const int half = ((s - S) / NB) & 1;
+  const float* W = work + ((size_t)blockIdx.y * 2 + half) * NB * NB;
+  float* Wnext = work + ((size_t)blockIdx.y * 2 + (half ^ 1)) * NB * NB;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int r0 = s + NB + blockIdx.x * NB;  // first row of this block
+  const bool vec = (n % 4) == 0;
+
+  // this thread's elements of A21, asked for before the update's loads
+  float t[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      t[i][j] = (r < n) ? A[(size_t)r * n + s + tx + 16 * j] : 0.0f;
+  }
+
+  // left-looking update from the earlier inner steps of this outer panel
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  float4 gp[4], gq[4];
+  if (S < s) {
+    gload64(gp, A, n, r0, n, S, vec, tid);
+    gload64(gq, A, n, s, n, S, vec, tid);
+  }
+  for (int kc = S; kc < s; kc += NB) {
+    sstore64(P, gp, tid);
+    sstore64(Q, gq, tid);
+    __syncthreads();
+    if (kc + NB < s) {
+      gload64(gp, A, n, r0, n, kc + NB, vec, tid);
+      gload64(gq, A, n, s, n, kc + NB, vec, tid);
+    } else {
+      gload64(gq, W, NB, 0, NB, 0, true, tid);  // inv(L11) for the product below
+    }
+    mma64(P, Q, ty, tx, acc);
+    __syncthreads();
+  }
+  if (S == s) gload64(gq, W, NB, 0, NB, 0, true, tid);
+
+  // T = A21 - update, then L21 = T inv(L11)^T
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      P[(ty + 16 * i) * LDP + tx + 16 * j] = t[i][j] - acc[i][j];
+  sstore64(Q, gq, tid);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  mma64(P, Q, ty, tx, acc);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      P[(ty + 16 * i) * LDP + tx + 16 * j] = acc[i][j];
+      if (r < n) A[(size_t)r * n + s + tx + 16 * j] = acc[i][j];
+    }
+  }
+
+  // the mirror image in the strict upper triangle: rows s..s+63, columns
+  // r0..r0+rows-1
+  const int rows = min(NB, n - r0);
+  for (int e = tid; e < NB * rows; e += PANEL_THREADS) {
     const int j = e / rows, c = e % rows;
     A[(size_t)(s + j) * n + r0 + c] = 0.0f;
   }
+
+  // these rows hold a later diagonal block of the same outer panel: bring
+  // it up to date, A[r, r] -= L21 L21^T on and below the diagonal
+  if (r0 < pe) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    mma64(P, P, ty, tx, acc);
+    float d[4][4];  // loads first, then stores
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        d[i][j] = (c <= r && r0 + r < n) ? A[(size_t)(r0 + r) * n + r0 + c] : 0.0f;
+      }
+    }
+    if (blockIdx.x != 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          if (c <= r && r0 + r < n) A[(size_t)(r0 + r) * n + r0 + c] = d[i][j] - acc[i][j];
+        }
+      }
+    } else {
+      // the diagonal block of the next inner step is final now: factor and
+      // invert it here, beside the other blocks, and save a launch
+      const int w = min(NB, n - r0);
+      __syncthreads();  // the products above read the memory that D overlays
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          float v = c <= r ? d[i][j] - acc[i][j] : 0.0f;
+          if (r >= w || c >= w) v = (r == c) ? 1.0f : 0.0f;
+          sm.diag.D[r * LDD + c] = v;
+        }
+      }
+      diag_factor_inv(sm.diag, tid);
+      diag_store(sm.diag, A, Wnext, n, r0, w, tid);
+    }
+  }
 }
 
-__device__ __forceinline__ int quad_index(int i, int t) {
-  // the i-th of a thread's 8 rows (or columns): two groups of 4 adjacent
-  // ones, TILE / 2 apart, so that each group is one float4
-  return (i < 4 ? 0 : TILE / 2) + 4 * t + (i & 3);
+// ------------------------------------------------------------------ update
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
 }
 
-__global__ void __launch_bounds__(UPDATE_THREADS, 2)
-trailing_update_kernel(float* __restrict__ a, int n, int s) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;               // [NB][LDT] the tile's row slice of L21
-  float* Bs = smem + NB * LDT;    // [NB][LDT] its column slice
-  float* A = a + (size_t)blockIdx.y * n * n;
-  const int t0 = s + NB;          // first row and column of the trailing matrix
+// One stage of the ring: ROWS rows x 32 columns of the panel, rows
+// row0.. of the trailing matrix (zeros at and beyond M), columns k0..
+template <int ROWS>
+__device__ __forceinline__ void stage_load(float* dst, const float* L, int n, int row0,
+                                           int M, int k0, bool vec, int tid) {
+#pragma unroll
+  for (int q = 0; q < (ROWS * KC / 4) / UPDATE_THREADS; ++q) {
+    const int idx = tid + q * UPDATE_THREADS;
+    const int r = idx / (KC / 4), c = 4 * (idx % (KC / 4));
+    const bool in = row0 + r < M;
+    const float* src = L + (size_t)(in ? row0 + r : 0) * n + k0 + c;
+    float* d = dst + r * LDK + c;
+    if (vec) {
+      cp_async16(d, src, in ? 16 : 0);
+    } else {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in) v = make_float4(src[0], src[1], src[2], src[3]);
+      *reinterpret_cast<float4*>(d) = v;
+    }
+  }
+}
+
+// The tile of 16 RI rows from r0 and 128 columns from c0 of the trailing
+// matrix that starts at row and column t0 = S + 256:
+// C -= L21[rows] L21[cols]^T on and below the diagonal, with L21 the 256
+// columns from S. RI = 8 is the 128 x 128 tile of the big update (the tile
+// on the diagonal stages its panel slice once); RI = 4 halves the tile for
+// a lookahead update that would otherwise leave most of the card idle.
+//
+// Arithmetic: float32 FMA. Plain TF32 is ruled out, because the update
+// cancels O(|K|) down to O(noise) and 10 mantissa bits leave negative
+// pivots. The split ("3xTF32") product, hi*hi + hi*lo + lo*hi with float32
+// accumulation, was tried (`update_tile_split` below, `chip_potrf_ab.py
+// --split-tf32`): as three mma.sync.m16n8k8 per product it was no faster
+// than the FMA tile (the splitting and the scalar fragment reads take what
+// the tensor cores save), and the factor's error against float64 roughly
+// doubled (4.8-5.5e-6 against 2.1-2.6e-6 at the G = 1 shapes), past
+// cholesky_ex's at four of the six shapes, so the FMA tile stays.
+template <int RI>
+__device__ __forceinline__ void update_tile(float* __restrict__ A, int n, int S, int r0,
+                                            int c0, float* smem) {
+  constexpr int BM = 16 * RI;
+  const int t0 = S + NBO;
   const int M = n - t0;
-  const bool vec = (n % 4) == 0;  // rows start on 16 bytes: float4 access
+  const float* L = A + (size_t)t0 * n + S;  // L21: row r is L + r * n
+  const bool diag = BM == TILE && r0 == c0;
+  const bool vec = (n % 4) == 0;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  constexpr int NCH = NBO / KC;
+  float* Cs = smem + STAGES * STAGE_FLOATS;
 
-  // lower tile number t -> (bi, bj), bj <= bi
+  auto load = [&](int chunk) {
+    float* st = smem + (chunk % STAGES) * STAGE_FLOATS;
+    stage_load<BM>(st, L, n, r0, M, chunk * KC, vec, tid);
+    if (!diag) stage_load<TILE>(st + TILE * LDK, L, n, c0, M, chunk * KC, vec, tid);
+  };
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    load(c);
+    if (c == STAGES - 2) {
+      // the C tile itself, whole rows of 512 bytes, into shared memory
+      // behind the first stages: by the time the products are done it has
+      // long arrived, and the epilogue waits for no load from device memory
+      for (int idx = tid; idx < BM * TILE / 4; idx += UPDATE_THREADS) {
+        const int r = idx / (TILE / 4), c4 = 4 * (idx % (TILE / 4));
+        const bool in = r0 + r < M && c0 + c4 < M;  // c0 + c4 + 3 < M: M % 4 == 0
+        const float* src = A + (size_t)(t0 + (in ? r0 + r : 0)) * n + t0 + (in ? c0 + c4 : 0);
+        float* d = Cs + r * LDC + c4;
+        if (vec) {
+          cp_async16(d, src, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            d[e] = (r0 + r < M && c0 + c4 + e < M) ? src[e] : 0.0f;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  float acc[RI][8];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int c = 0; c < NCH; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    __syncthreads();
+    if (c + STAGES - 1 < NCH) load(c + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* As = smem + (c % STAGES) * STAGE_FLOATS;
+    const float* Bs = diag ? As : As + TILE * LDK;
+#pragma unroll
+    for (int k = 0; k < KC; k += 4) {
+      float4 p[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        p[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * LDK + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 q = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * LDK + k);
+        // RI independent accumulators per component, so that no FMA waits
+        // for the one before it
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] += p[i].x * q.x;
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] += p[i].y * q.y;
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] += p[i].z * q.z;
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] += p[i].w * q.w;
+      }
+    }
+  }
+
+  // C -= acc on and below the diagonal, C read from its staged copy
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = ty + 16 * i;
+    if (r0 + r >= M) continue;
+    float* row = A + (size_t)(t0 + r0 + r) * n + t0 + c0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tx + 16 * j;
+      if (c0 + c <= r0 + r) row[c] = Cs[r * LDC + c] - acc[i][j];
+    }
+  }
+}
+
+#ifdef DSM_SPLIT_TF32
+// The experiment with the tensor cores (compiled only with
+// -DDSM_SPLIT_TF32, never by the port's build): the same 128 x 128 tile,
+// its product as a split TF32 one. Each float32 operand is a TF32 high
+// part plus a TF32 low part (both by cvt.rna), and a product is three
+// mma.sync.m16n8k8: hi*hi into one float32 accumulator, hi*lo and lo*hi
+// into a second one, so that the small terms are not rounded against the
+// large sum; lo*lo (2^-22 of the product) is dropped. A zero operand is
+// zero in both parts, so identity padding still meets exact zeros. Eight
+// warps as 2 x 4, each 64 rows x 32 columns of the tile: 4 x 4 mma tiles.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void update_tile_split(float* __restrict__ A, int n, int S, int r0,
+                                                  int c0, float* smem) {
+  const int t0 = S + NBO;
+  const int M = n - t0;
+  const float* L = A + (size_t)t0 * n + S;
+  const bool diag = r0 == c0;
+  const bool vec = (n % 4) == 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 64 * (warp >> 2), wc = 32 * (warp & 3);
+  constexpr int NCH = NBO / KC;
+  float* Cs = smem + STAGES * STAGE_FLOATS;
+
+  auto load = [&](int chunk) {
+    float* st = smem + (chunk % STAGES) * STAGE_FLOATS;
+    stage_load<TILE>(st, L, n, r0, M, chunk * KC, vec, tid);
+    if (!diag) stage_load<TILE>(st + TILE * LDK, L, n, c0, M, chunk * KC, vec, tid);
+  };
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    load(c);
+    if (c == STAGES - 2) {
+      for (int idx = tid; idx < TILE * TILE / 4; idx += UPDATE_THREADS) {
+        const int r = idx / (TILE / 4), c4 = 4 * (idx % (TILE / 4));
+        const bool in = r0 + r < M && c0 + c4 < M;
+        const float* src = A + (size_t)(t0 + (in ? r0 + r : 0)) * n + t0 + (in ? c0 + c4 : 0);
+        float* d = Cs + r * LDC + c4;
+        if (vec) {
+          cp_async16(d, src, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            d[e] = (r0 + r < M && c0 + c4 + e < M) ? src[e] : 0.0f;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  float big[4][4][4], small[4][4][4];  // [row tile][column tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
+
+  for (int c = 0; c < NCH; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    __syncthreads();
+    if (c + STAGES - 1 < NCH) load(c + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* As = smem + (c % STAGES) * STAGE_FLOATS;
+    const float* Bs = diag ? As : As + TILE * LDK;
+#pragma unroll
+    for (int k = 0; k < KC; k += 8) {
+      unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* a = As + (wr + 16 * i + g) * LDK + k + t;
+        split_tf32(a[0], ah[i][0], al[i][0]);
+        split_tf32(a[8 * LDK], ah[i][1], al[i][1]);
+        split_tf32(a[4], ah[i][2], al[i][2]);
+        split_tf32(a[8 * LDK + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* b = Bs + (wc + 8 * j + g) * LDK + k + t;
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[4], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(small[i][j], ah[i], bl[j]);
+          mma_tf32(small[i][j], al[i], bh[j]);
+          mma_tf32(big[i][j], ah[i], bh[j]);
+        }
+    }
+  }
+
+  // C -= product on and below the diagonal, C read from its staged copy
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wr + 16 * i + g + 8 * (e >> 1);
+        const int cc = wc + 8 * j + 2 * t + (e & 1);
+        if (r0 + r < M && c0 + cc <= r0 + r)
+          A[(size_t)(t0 + r0 + r) * n + t0 + c0 + cc] =
+              Cs[r * LDC + cc] - (big[i][j][e] + small[i][j][e]);
+      }
+}
+#endif  // DSM_SPLIT_TF32
+
+// The first two tile columns, the 256 columns of the next outer panel, in
+// tiles of 16 RI rows, `ntr` tile rows in all: column 0 from tile row 0,
+// column 1 from the first tile row that reaches its diagonal.
+template <int RI>
+__global__ void __launch_bounds__(UPDATE_THREADS, 1)
+lookahead_update_kernel(float* __restrict__ a, int n, int S, int ntr) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int FIRST = TILE / (16 * RI);  // first tile row of column 1
+  const int t = blockIdx.x;
+  const int bj = t < ntr ? 0 : 1;
+  const int bi = t < ntr ? t : t - ntr + FIRST;
+  update_tile<RI>(a + (size_t)blockIdx.y * n * n, n, S, bi * 16 * RI, bj * TILE, smem);
+}
+
+// the lower 128 x 128 tiles from tile column 2 on
+__global__ void __launch_bounds__(UPDATE_THREADS, 1)
+trailing_update_kernel(float* __restrict__ a, int n, int S) {
+  extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.x;
   int bi = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
   while (bi * (bi + 1) / 2 > t) --bi;
   while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
   const int bj = t - bi * (bi + 1) / 2;
-  const int r0 = bi * TILE, c0 = bj * TILE;
+#ifdef DSM_SPLIT_TF32
+  update_tile_split(a + (size_t)blockIdx.y * n * n, n, S, (bi + 2) * TILE, (bj + 2) * TILE,
+                    smem);
+#else
+  update_tile<8>(a + (size_t)blockIdx.y * n * n, n, S, (bi + 2) * TILE, (bj + 2) * TILE,
+                 smem);
+#endif
+}
 
-  // stage both slices k-major: a warp reads 16 rows x 8 consecutive k
-  // (two float4 per row, coalesced) and its transposed stores fall on 32
-  // distinct banks (row stride LDT = TILE + 4)
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int u = warp; u < (TILE / 16) * (NB / 8); u += UPDATE_THREADS / 32) {
-    const int r = 16 * (u / (NB / 8)) + (lane & 15);
-    const int k = 8 * (u % (NB / 8)) + 4 * (lane >> 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* dst = h ? Bs : As;
-      const int row = (h ? c0 : r0) + r;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < M) {
-        const float* src = A + (size_t)(t0 + row) * n + s + k;
-        if (vec) {
-          v = *reinterpret_cast<const float4*>(src);
-        } else {
-          v = make_float4(src[0], src[1], src[2], src[3]);
-        }
-      }
-      dst[(k + 0) * LDT + r] = v.x;
-      dst[(k + 1) * LDT + r] = v.y;
-      dst[(k + 2) * LDT + r] = v.z;
-      dst[(k + 3) * LDT + r] = v.w;
-    }
-  }
-  __syncthreads();
+// ------------------------------------------------------------------- host
 
-  const int tx = tid % TT, ty = tid / TT;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < NB; ++k) {
-    const float* ak = As + k * LDT + 4 * ty;
-    const float* bk = Bs + k * LDT + 4 * tx;
-    const float4 a0 = *reinterpret_cast<const float4*>(ak);
-    const float4 a1 = *reinterpret_cast<const float4*>(ak + TILE / 2);
-    const float4 b0 = *reinterpret_cast<const float4*>(bk);
-    const float4 b1 = *reinterpret_cast<const float4*>(bk + TILE / 2);
-    const float pa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float pb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += pa[i] * pb[j];
-  }
+struct DeviceState {
+  bool ready = false;
+  cudaStream_t side = nullptr;
+  cudaEvent_t start = nullptr, panel = nullptr, rest = nullptr;
+};
+constexpr int MAX_DEVICES = 64;
+// lookahead updates of fewer 128-row tiles than this take 64-row tiles
+constexpr int LOOKAHEAD_FULL_TILES = 2 * 132;
+DeviceState g_state[MAX_DEVICES];
+std::mutex g_mutex;
 
-  // C -= acc on and below the diagonal; 4 adjacent columns at a time
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + quad_index(i, ty);
-    if (r >= M) continue;
-    float* row = A + (size_t)(t0 + r) * n + t0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + quad_index(4 * h, tx);
-      if (c > r) continue;
-      if (vec && c + 3 <= r) {
-        float4* p = reinterpret_cast<float4*>(row + c);
-        float4 v = *p;
-        v.x -= acc[i][4 * h + 0];
-        v.y -= acc[i][4 * h + 1];
-        v.z -= acc[i][4 * h + 2];
-        v.w -= acc[i][4 * h + 3];
-        *p = v;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j <= r) row[c + j] -= acc[i][4 * h + j];
-      }
-    }
+cudaError_t device_state(DeviceState** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  DeviceState& st = g_state[dev];
+  if (!st.ready) {
+    int least = 0, greatest = 0;
+    if ((err = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess) return err;
+    if ((err = cudaStreamCreateWithPriority(&st.side, cudaStreamNonBlocking, greatest)) !=
+        cudaSuccess)
+      return err;
+    cudaEvent_t* events[3] = {&st.start, &st.panel, &st.rest};
+    for (cudaEvent_t* e : events)
+      if ((err = cudaEventCreateWithFlags(e, cudaEventDisableTiming)) != cudaSuccess) return err;
+    const void* updates[3] = {(const void*)lookahead_update_kernel<4>,
+                              (const void*)lookahead_update_kernel<8>,
+                              (const void*)trailing_update_kernel};
+    for (const void* f : updates)
+      if ((err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)UPDATE_SMEM)) != cudaSuccess)
+        return err;
+    st.ready = true;
   }
+  *out = &st;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int dsm_blocked_cholesky(void* a, int G, int n, void* stream) {
+#define DSM_CHECK(call)                                  \
+  do {                                                   \
+    cudaError_t e_ = (call);                             \
+    if (e_ != cudaSuccess) return (int)e_;               \
+  } while (0)
+
+extern "C" int dsm_blocked_cholesky(void* a, void* work, int G, int n, void* stream) {
   if (G < 0 || n < 0 || G > 65535) return (int)cudaErrorInvalidValue;
   if (G == 0 || n == 0) return 0;
-  const size_t smem = 2 * NB * LDT * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      trailing_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  std::lock_guard<std::mutex> lock(g_mutex);
+  DeviceState* st = nullptr;
+  DSM_CHECK(device_state(&st));
+  cudaStream_t caller = static_cast<cudaStream_t>(stream);
+  cudaStream_t side = st->side;
   float* A = static_cast<float*>(a);
-  for (int s = 0; s < n; s += NB) {
-    const int w = n - s < NB ? n - s : NB;
-    diag_factor_kernel<<<G, DIAG_THREADS, 0, st>>>(A, n, s, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int M = n - s - w;
+  float* W = static_cast<float*>(work);
+
+  // the side stream starts after whatever the caller's stream holds
+  DSM_CHECK(cudaEventRecord(st->start, caller));
+  DSM_CHECK(cudaStreamWaitEvent(side, st->start, 0));
+  bool rest_pending = false;  // a rest update the next lookahead must wait for
+  for (int S = 0; S < n; S += NBO) {
+    const int pe = n - S < NBO ? n : S + NBO;
+    // the panel's first diagonal block, then one launch per inner step:
+    // the rows below the step's block, and the next step's block with them
+    diag_inv_kernel<<<G, DIAG_THREADS, 0, side>>>(A, W, n, S, n - S < NB ? n - S : NB);
+    DSM_CHECK(cudaGetLastError());
+    for (int s = S; s < pe && n - s > NB; s += NB) {
+      panel_kernel<<<dim3((n - s - 1) / NB, G), PANEL_THREADS, 0, side>>>(A, W, n, S, s, pe);
+      DSM_CHECK(cudaGetLastError());
+    }
+    const int M = n - pe;
     if (M <= 0) break;
-    panel_solve_kernel<<<dim3((M + ROWS - 1) / ROWS, G), ROWS, 0, st>>>(A, n, s);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const long long nt = (M + TILE - 1) / TILE;
-    trailing_update_kernel<<<dim3((unsigned)(nt * (nt + 1) / 2), G),
-                             UPDATE_THREADS, smem, st>>>(A, n, s);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int nt = (M + TILE - 1) / TILE;
+    DSM_CHECK(cudaEventRecord(st->panel, side));
+    if (rest_pending) DSM_CHECK(cudaStreamWaitEvent(side, st->rest, 0));
+    rest_pending = false;
+    if ((long long)(2 * nt - 1) * G >= LOOKAHEAD_FULL_TILES) {
+      lookahead_update_kernel<8><<<dim3(nt > 1 ? 2 * nt - 1 : 1, G), UPDATE_THREADS,
+                                   UPDATE_SMEM, side>>>(A, n, S, nt);
+    } else {
+      // too few 128-row tiles to fill the card: 64-row tiles, twice as many
+      const int ntr = (M + TILE / 2 - 1) / (TILE / 2);
+      lookahead_update_kernel<4><<<dim3(ntr > 2 ? 2 * ntr - 2 : ntr, G), UPDATE_THREADS,
+                                   UPDATE_SMEM, side>>>(A, n, S, ntr);
+    }
+    DSM_CHECK(cudaGetLastError());
+    if (nt > 2) {
+      const long long m = nt - 2;
+      DSM_CHECK(cudaStreamWaitEvent(caller, st->panel, 0));
+      trailing_update_kernel<<<dim3((unsigned)(m * (m + 1) / 2), G), UPDATE_THREADS,
+                               UPDATE_SMEM, caller>>>(A, n, S);
+      DSM_CHECK(cudaGetLastError());
+      DSM_CHECK(cudaEventRecord(st->rest, caller));
+      rest_pending = true;
+    }
   }
+  // the caller's stream goes on after the side stream
+  DSM_CHECK(cudaEventRecord(st->panel, side));
+  DSM_CHECK(cudaStreamWaitEvent(caller, st->panel, 0));
   return 0;
 }

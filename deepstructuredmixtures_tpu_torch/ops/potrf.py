@@ -9,9 +9,13 @@ contract is stricter than the TPU kernel's: the strict upper triangle is
 exactly 0 (the TPU kernel's ``tril=True``), identity-padded rows and
 columns stay the identity, and a matrix that is not positive definite
 comes back non-finite without raising (as ``ops.cholesky.cholesky_nosym``
-does). Any ``G >= 1`` and any ``n``: the ragged last panel is masked, so
-the bucket widths of ``plan.bucketize`` (multiples of 8 above 1024) need no
-extra padding. The kernel's design note is at the top of the CUDA source.
+does). Any ``G >= 1`` and any ``n``: ragged edges are masked, so the bucket
+widths of ``plan.bucketize`` (multiples of 8 above 1024) need no extra
+padding. The kernel blocks on two levels (256-wide outer panels for the big
+trailing update, 64-wide inner steps whose rows below the diagonal block
+are a product with the block's inverse) and overlaps its serial chain with
+the update on a side stream that it joins before returning; its design
+note is at the top of the CUDA source.
 
 The kernel is built and loaded by ``ops/build.py``. On a CPU tensor
 :func:`blocked_cholesky` runs :func:`blocked_cholesky_reference`; on a
@@ -26,13 +30,17 @@ import torch
 from . import build
 from .fused_chol import MAX_N
 
-#: panel width of the kernel and of its plain version
+#: two-level blocking of the kernel and of its plain version: outer panels
+#: of ``NBO`` columns (the rank of the big trailing update), inner steps of
+#: ``NB`` columns (the diagonal block that is factored and inverted)
 NB = 64
+NBO = 256
 
 #: kernel launches so far (one per call of the CUDA path)
 LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def supported(nmax: int, dtype, device) -> bool:
@@ -44,24 +52,38 @@ def supported(nmax: int, dtype, device) -> bool:
 
 
 def blocked_cholesky_reference(a):
-    """Plain PyTorch version with the kernel's blocking: per ``NB``-wide
-    panel, the diagonal block by ``torch.linalg.cholesky_ex`` (a failed
-    block becomes NaN, so a matrix that is not positive definite comes
-    back non-finite), the panel by ``solve_triangular``, the trailing
-    update by ``baddbmm``; then ``tril``. Reads the lower triangle of the
+    """Plain PyTorch version with the kernel's two-level blocking. Per
+    ``NBO``-wide outer panel, ``NB``-wide inner steps that touch only their
+    own columns (left-looking inside the panel): the step's columns take
+    the update from the panel's earlier steps (the kernel brings the later
+    diagonal blocks up to date step by step, the same sum in another
+    order), the diagonal block goes to
+    ``torch.linalg.cholesky_ex`` (a failed block becomes NaN, so a matrix
+    that is not positive definite comes back non-finite), and the rows
+    below it become a product with ``inv(L11)`` as in the kernel, not a
+    substitution. After the panel, one rank-``NBO`` ``baddbmm`` on the
+    trailing matrix; then ``tril``. Reads the lower triangle of the
     diagonal blocks only. Returns a new tensor in the dtype of ``a``."""
     n = a.shape[-1]
     out = a.clone()
-    for s in range(0, n, NB):
-        e = min(s + NB, n)
-        L11, info = torch.linalg.cholesky_ex(out[:, s:e, s:e])
-        L11 = torch.where((info == 0)[:, None, None], L11, torch.nan)
-        out[:, s:e, s:e] = L11
-        if e < n:
-            L21 = torch.linalg.solve_triangular(L11.mT, out[:, e:, s:e],
-                                                upper=True, left=False)
-            out[:, e:, s:e] = L21
-            out[:, e:, e:].baddbmm_(L21, L21.mT, alpha=-1.0)
+    eye = torch.eye(NB, dtype=a.dtype, device=a.device)
+    for S in range(0, n, NBO):
+        pe = min(S + NBO, n)
+        for s in range(S, pe, NB):
+            e = min(s + NB, n)
+            if s > S:
+                out[:, s:, s:e].baddbmm_(out[:, s:, S:s], out[:, s:e, S:s].mT,
+                                         alpha=-1.0)
+            L11, info = torch.linalg.cholesky_ex(out[:, s:e, s:e])
+            L11 = torch.where((info == 0)[:, None, None], L11, torch.nan)
+            out[:, s:e, s:e] = L11
+            if e < n:
+                inv = torch.linalg.solve_triangular(
+                    L11, eye[: e - s, : e - s].expand_as(L11), upper=False)
+                out[:, e:, s:e] = out[:, e:, s:e] @ inv.mT
+        if pe < n:
+            L21 = out[:, pe:, S:pe]
+            out[:, pe:, pe:].baddbmm_(L21, L21.mT, alpha=-1.0)
     return torch.tril(out)
 
 
@@ -70,7 +92,9 @@ def blocked_cholesky(a):
     over ``a``; returns ``a``. Only the lower triangle of ``a`` is read.
 
     In place so that the hybrid fit factors the gram buffer it allocated
-    instead of a second one (up to 1 GiB per leaf at n = 16232). On CUDA
+    instead of a second one (up to 1 GiB per leaf at n = 16232); the only
+    scratch is 32 KiB per matrix for the inverses of two diagonal blocks.
+    The call is one unit of work on the current stream. On CUDA
     ``a`` must be a contiguous float32 tensor; a CPU tensor of any float
     dtype takes the plain version."""
     global LAUNCHES
@@ -90,9 +114,12 @@ def blocked_cholesky(a):
     if G == 0 or n == 0:
         return a
     fn = build.load("blocked_cholesky", "dsm_blocked_cholesky", _ARGTYPES)
+    # scratch of the kernel: inv(L11) of the current diagonal block and of
+    # the next one
+    work = torch.empty((G, 2, NB, NB), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), G, n, stream)
+        err = fn(a.data_ptr(), work.data_ptr(), G, n, stream)
     if err != 0:
         raise RuntimeError(f"blocked_cholesky: CUDA error {err} at launch")
     LAUNCHES += 1

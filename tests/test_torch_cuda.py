@@ -99,7 +99,9 @@ def test_cuda_kernel_matches_plain(cuda_device, L, N, tied):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n", [(3, 200), (2, 1040), (1, 2048)])
+@pytest.mark.parametrize("g,n", [(3, 200), (2, 1040), (1, 2048), (1, 257),
+                                 (2, 300), (1, 520), (3, 256), (1, 37),
+                                 (2, 1030), (1, 1290)])
 def test_cuda_blocked_cholesky_matches_plain(cuda_device, g, n):
     A, valid = spd_batch(g, n, seed=n)
     a = torch.from_numpy(A).to(cuda_device)
@@ -116,3 +118,19 @@ def test_cuda_blocked_cholesky_matches_plain(cuda_device, g, n):
     assert np.abs(out - plain).max() < POTRF_TOL
     with pytest.raises(TypeError):
         potrf.blocked_cholesky(a.double())
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_cholesky_not_positive_definite(cuda_device):
+    """A negative pivot in the second outer panel poisons that matrix, and
+    only that matrix, without raising."""
+    A, valid = spd_batch(3, 600, seed=5)
+    A[1, 300, 300] = -1.0
+    out = potrf.blocked_cholesky(torch.from_numpy(A).to(cuda_device))
+    torch.cuda.synchronize()
+    assert not torch.isfinite(out[1]).all()
+    assert not torch.isfinite(out[1, -1, -1])  # it reached the last pivot
+    for g in (0, 2):
+        ref = np.linalg.cholesky(A[g].astype(np.float64))
+        assert np.abs(out[g].cpu().numpy() - ref).max() < POTRF_TOL
+    check_potrf_contract(out[[0, 2]].cpu().numpy(), valid)

@@ -3,10 +3,11 @@
 ``tests/test_pallas_potrf.py`` runs it) and float64 NumPy oracles.
 
 On the CPU the wrapper runs its plain PyTorch version, which uses the CUDA
-kernel's own 64-wide blocking, so these tests hold that blocking (ragged
-last panel included) to the oracles; the CUDA kernel itself is held to the
-same plain version on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+kernel's own two-level blocking (256-wide outer panels, 64-wide inner
+steps, a product with the inverse of the diagonal block), so these tests
+hold that blocking (ragged last panel included) to the oracles; the CUDA
+kernel itself is held to the same plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -38,7 +39,9 @@ def test_plain_matches_pallas_interpreter_and_oracle():
     assert _oracle_err(pallas, A) < POTRF_TOL
 
 
-@pytest.mark.parametrize("g,n", [(3, 200), (1, 1040), (2, 64), (1, 37)])
+@pytest.mark.parametrize("g,n", [(3, 200), (1, 1040), (2, 64), (1, 37),
+                                 (1, 257), (2, 300), (1, 520), (3, 256),
+                                 (2, 255), (1, 321)])
 def test_ragged_sizes_match_oracle(g, n):
     A, valid = spd_batch(g, n, seed=n)
     before = potrf.LAUNCHES

@@ -1,19 +1,12 @@
 #!/usr/bin/env python3
-"""Two comparisons around the blocked Cholesky kernel, on one NVIDIA GPU.
+"""The streamed path with and without the blocked Cholesky kernel, on one
+NVIDIA GPU.
 
-    python3 chip_potrf_ab.py --split-tf32
-    python3 chip_potrf_ab.py --streamed-factor
+    python3 chip_potrf_ab.py
 
-``--split-tf32`` builds ``csrc/blocked_cholesky.cu`` twice, as the port
-builds it (float32 FMA trailing update) and with ``-DDSM_SPLIT_TF32`` (the
-trailing update as a split TF32 product on the tensor cores), and runs
-both in turns at the shapes of ``chip_smoke.py`` phase 3: time, and max abs
-error of the factor against float64, beside ``torch.linalg.cholesky_ex``'s
-on the same input.
-
-``--streamed-factor`` measures what the streamed path would gain and lose
-with the blocked kernel in place of cuSOLVER: ``fit._factor`` is swapped
-for ``fit._factor_kept`` inside this script only. It prints the headline
+Measures what the streamed path would gain and lose with the blocked
+kernel in place of cuSOLVER: ``fit._factor`` is swapped for
+``fit._factor_kept`` inside this script only. It prints the headline
 pipeline (fit + update + routed predict at T=2000, min of 3) both ways in
 turns at N=100k and N=20k, the float32 errors against the float64 run both
 ways, and, for single leaves of the N=100k tree, the error of the
@@ -24,12 +17,8 @@ One JSON object per line; needs a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -42,74 +31,6 @@ import chip_smoke as cs  # noqa: E402
 
 def say(**fields):
     print(json.dumps(fields), flush=True)
-
-
-def _build_variants(variants):
-    """One ``nvcc`` per ``{name: extra flags}``, all started together;
-    returns ``{name: C entry}``."""
-    from deepstructuredmixtures_tpu_torch.ops import build, potrf
-
-    src = build.CSRC / "blocked_cholesky.cu"
-    out = build.BUILD_DIR.parent / "kernels_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    procs = {name: (subprocess.Popen(
-        [nvcc, *build.NVCC_FLAGS, *flags, "-o", str(out / f"lib{name}.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-        out / f"lib{name}.so") for name, flags in variants.items()}
-    entries = {}
-    for name, (proc, lib) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).dsm_blocked_cholesky
-        fn.argtypes, fn.restype = potrf._ARGTYPES, ctypes.c_int
-        entries[name] = fn
-    return entries
-
-
-def split_tf32():
-    import torch
-
-    from deepstructuredmixtures_tpu_torch.ops import potrf
-
-    entries = _build_variants({"fma": [], "split_tf32": ["-DDSM_SPLIT_TF32"]})
-
-    def call(fn, a):
-        G, n, _ = a.shape
-        work = torch.empty((G, 2, potrf.NB, potrf.NB), dtype=torch.float32,
-                           device=a.device)
-        err = fn(a.data_ptr(), work.data_ptr(), G, n,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"CUDA error {err}")
-        return a
-
-    card = cs.card_line()
-    for seed, (G, n) in enumerate(cs.POTRF_SHAPES):
-        a64, _ = cs._spd_batch(G, n, seed)
-        ref = torch.linalg.cholesky(a64)
-        a = a64.float()
-        del a64
-        lib_err = float((torch.linalg.cholesky_ex(a)[0].double() - ref).abs().max())
-        buf = torch.empty_like(a)
-        reps = 5 if n > 8000 else 10
-        copy_ms = cs.cuda_ms(lambda: buf.copy_(a), warmup=1, reps=reps)
-        for name in ("fma", "split_tf32", "split_tf32", "fma"):
-            fn = entries[name]
-            out = call(fn, buf.copy_(a))
-            torch.cuda.synchronize()
-            err = float((out.double() - ref).abs().max())
-            neg = bool((torch.diagonal(out, dim1=1, dim2=2) <= 0).any()
-                       or not torch.isfinite(out).all())
-            ms = cs.cuda_ms(lambda: call(fn, buf.copy_(a)), warmup=1,
-                            reps=reps) - copy_ms
-            say(compare="split_tf32", variant=name, G=G, n=n, kernel_ms=ms,
-                max_abs_err_vs_f64=err, cholesky_ex_f32_err_vs_f64=lib_err,
-                no_worse_than_cholesky_ex=err <= lib_err,
-                bad_pivot=neg, card=card)
-        del a, buf, ref
-        torch.cuda.empty_cache()
 
 
 def _run(n_train, dtype):
@@ -174,12 +95,14 @@ def _leaf_probe(model64):
         torch.cuda.empty_cache()
 
 
-def streamed_factor():
+def main():
     import torch
 
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.ops import build
 
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_potrf_ab.py: no CUDA device")
     build.build(build.KERNELS)
     card = cs.card_line()
     ways = {"cusolver": fitlib._factor, "blocked_kernel": fitlib._factor_kept}
@@ -205,23 +128,6 @@ def streamed_factor():
             _leaf_probe(run64["model"])
         del run64, runs, model
         torch.cuda.empty_cache()
-
-
-def main():
-    import torch
-
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--split-tf32", action="store_true")
-    ap.add_argument("--streamed-factor", action="store_true")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_potrf_ab.py: no CUDA device")
-    if not (args.split_tf32 or args.streamed_factor):
-        ap.error("choose --split-tf32 and/or --streamed-factor")
-    if args.split_tf32:
-        split_tf32()
-    if args.streamed_factor:
-        streamed_factor()
 
 
 if __name__ == "__main__":

@@ -100,6 +100,7 @@
 
 #include <cuda_runtime.h>
 
+#include <initializer_list>
 #include <mutex>
 
 namespace {
@@ -572,12 +573,13 @@ __device__ __forceinline__ void stage_load(float* dst, const float* L, int n, in
 // Arithmetic: float32 FMA. Plain TF32 is ruled out, because the update
 // cancels O(|K|) down to O(noise) and 10 mantissa bits leave negative
 // pivots. The split ("3xTF32") product, hi*hi + hi*lo + lo*hi with float32
-// accumulation, was tried (`update_tile_split` below, `chip_potrf_ab.py
-// --split-tf32`): as three mma.sync.m16n8k8 per product it was no faster
+// accumulation, was tried on this tile and measured (PERF.md has the
+// table): as three mma.sync.m16n8k8 per product it was at most 5% faster
 // than the FMA tile (the splitting and the scalar fragment reads take what
 // the tensor cores save), and the factor's error against float64 roughly
 // doubled (4.8-5.5e-6 against 2.1-2.6e-6 at the G = 1 shapes), past
-// cholesky_ex's at four of the six shapes, so the FMA tile stays.
+// cholesky_ex's at four of the six shapes, so the FMA tile stays and the
+// variant is not kept in the source.
 template <int RI>
 __device__ __forceinline__ void update_tile(float* __restrict__ A, int n, int S, int r0,
                                             int c0, float* smem) {
@@ -671,129 +673,6 @@ __device__ __forceinline__ void update_tile(float* __restrict__ A, int n, int S,
   }
 }
 
-#ifdef DSM_SPLIT_TF32
-// The experiment with the tensor cores (compiled only with
-// -DDSM_SPLIT_TF32, never by the port's build): the same 128 x 128 tile,
-// its product as a split TF32 one. Each float32 operand is a TF32 high
-// part plus a TF32 low part (both by cvt.rna), and a product is three
-// mma.sync.m16n8k8: hi*hi into one float32 accumulator, hi*lo and lo*hi
-// into a second one, so that the small terms are not rounded against the
-// large sum; lo*lo (2^-22 of the product) is dropped. A zero operand is
-// zero in both parts, so identity padding still meets exact zeros. Eight
-// warps as 2 x 4, each 64 rows x 32 columns of the tile: 4 x 4 mma tiles.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void update_tile_split(float* __restrict__ A, int n, int S, int r0,
-                                                  int c0, float* smem) {
-  const int t0 = S + NBO;
-  const int M = n - t0;
-  const float* L = A + (size_t)t0 * n + S;
-  const bool diag = r0 == c0;
-  const bool vec = (n % 4) == 0;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = 64 * (warp >> 2), wc = 32 * (warp & 3);
-  constexpr int NCH = NBO / KC;
-  float* Cs = smem + STAGES * STAGE_FLOATS;
-
-  auto load = [&](int chunk) {
-    float* st = smem + (chunk % STAGES) * STAGE_FLOATS;
-    stage_load<TILE>(st, L, n, r0, M, chunk * KC, vec, tid);
-    if (!diag) stage_load<TILE>(st + TILE * LDK, L, n, c0, M, chunk * KC, vec, tid);
-  };
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    load(c);
-    if (c == STAGES - 2) {
-      for (int idx = tid; idx < TILE * TILE / 4; idx += UPDATE_THREADS) {
-        const int r = idx / (TILE / 4), c4 = 4 * (idx % (TILE / 4));
-        const bool in = r0 + r < M && c0 + c4 < M;
-        const float* src = A + (size_t)(t0 + (in ? r0 + r : 0)) * n + t0 + (in ? c0 + c4 : 0);
-        float* d = Cs + r * LDC + c4;
-        if (vec) {
-          cp_async16(d, src, in ? 16 : 0);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            d[e] = (r0 + r < M && c0 + c4 + e < M) ? src[e] : 0.0f;
-        }
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-
-  float big[4][4][4], small[4][4][4];  // [row tile][column tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
-
-  for (int c = 0; c < NCH; ++c) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();
-    if (c + STAGES - 1 < NCH) load(c + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    const float* As = smem + (c % STAGES) * STAGE_FLOATS;
-    const float* Bs = diag ? As : As + TILE * LDK;
-#pragma unroll
-    for (int k = 0; k < KC; k += 8) {
-      unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* a = As + (wr + 16 * i + g) * LDK + k + t;
-        split_tf32(a[0], ah[i][0], al[i][0]);
-        split_tf32(a[8 * LDK], ah[i][1], al[i][1]);
-        split_tf32(a[4], ah[i][2], al[i][2]);
-        split_tf32(a[8 * LDK + 4], ah[i][3], al[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* b = Bs + (wc + 8 * j + g) * LDK + k + t;
-        split_tf32(b[0], bh[j][0], bl[j][0]);
-        split_tf32(b[4], bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_tf32(small[i][j], ah[i], bl[j]);
-          mma_tf32(small[i][j], al[i], bh[j]);
-          mma_tf32(big[i][j], ah[i], bh[j]);
-        }
-    }
-  }
-
-  // C -= product on and below the diagonal, C read from its staged copy
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = wr + 16 * i + g + 8 * (e >> 1);
-        const int cc = wc + 8 * j + 2 * t + (e & 1);
-        if (r0 + r < M && c0 + cc <= r0 + r)
-          A[(size_t)(t0 + r0 + r) * n + t0 + c0 + cc] =
-              Cs[r * LDC + cc] - (big[i][j][e] + small[i][j][e]);
-      }
-}
-#endif  // DSM_SPLIT_TF32
-
 // The first two tile columns, the 256 columns of the next outer panel, in
 // tiles of 16 RI rows, `ntr` tile rows in all: column 0 from tile row 0,
 // column 1 from the first tile row that reaches its diagonal.
@@ -817,27 +696,44 @@ trailing_update_kernel(float* __restrict__ a, int n, int S) {
   while (bi * (bi + 1) / 2 > t) --bi;
   while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
   const int bj = t - bi * (bi + 1) / 2;
-#ifdef DSM_SPLIT_TF32
-  update_tile_split(a + (size_t)blockIdx.y * n * n, n, S, (bi + 2) * TILE, (bj + 2) * TILE,
-                    smem);
-#else
   update_tile<8>(a + (size_t)blockIdx.y * n * n, n, S, (bi + 2) * TILE, (bj + 2) * TILE,
                  smem);
-#endif
 }
 
 // ------------------------------------------------------------------- host
 
 struct DeviceState {
   bool ready = false;
+  int sms = 0;  // multiprocessors of the device
   cudaStream_t side = nullptr;
   cudaEvent_t start = nullptr, panel = nullptr, rest = nullptr;
 };
 constexpr int MAX_DEVICES = 64;
-// lookahead updates of fewer 128-row tiles than this take 64-row tiles
-constexpr int LOOKAHEAD_FULL_TILES = 2 * 132;
 DeviceState g_state[MAX_DEVICES];
 std::mutex g_mutex;
+
+cudaError_t make_state(DeviceState& st, int dev) {
+  cudaError_t err;
+  if ((err = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  int least = 0, greatest = 0;
+  if ((err = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess) return err;
+  if ((err = cudaStreamCreateWithPriority(&st.side, cudaStreamNonBlocking, greatest)) !=
+      cudaSuccess)
+    return err;
+  cudaEvent_t* events[3] = {&st.start, &st.panel, &st.rest};
+  for (cudaEvent_t* e : events)
+    if ((err = cudaEventCreateWithFlags(e, cudaEventDisableTiming)) != cudaSuccess) return err;
+  const void* updates[3] = {(const void*)lookahead_update_kernel<4>,
+                            (const void*)lookahead_update_kernel<8>,
+                            (const void*)trailing_update_kernel};
+  for (const void* f : updates)
+    if ((err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)UPDATE_SMEM)) != cudaSuccess)
+      return err;
+  return cudaSuccess;
+}
 
 cudaError_t device_state(DeviceState** out) {
   int dev = 0;
@@ -846,21 +742,14 @@ cudaError_t device_state(DeviceState** out) {
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   DeviceState& st = g_state[dev];
   if (!st.ready) {
-    int least = 0, greatest = 0;
-    if ((err = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess) return err;
-    if ((err = cudaStreamCreateWithPriority(&st.side, cudaStreamNonBlocking, greatest)) !=
-        cudaSuccess)
+    if ((err = make_state(st, dev)) != cudaSuccess) {
+      // a later call starts afresh and finds nothing half made
+      if (st.side) cudaStreamDestroy(st.side);
+      for (cudaEvent_t e : {st.start, st.panel, st.rest})
+        if (e) cudaEventDestroy(e);
+      st = DeviceState();
       return err;
-    cudaEvent_t* events[3] = {&st.start, &st.panel, &st.rest};
-    for (cudaEvent_t* e : events)
-      if ((err = cudaEventCreateWithFlags(e, cudaEventDisableTiming)) != cudaSuccess) return err;
-    const void* updates[3] = {(const void*)lookahead_update_kernel<4>,
-                              (const void*)lookahead_update_kernel<8>,
-                              (const void*)trailing_update_kernel};
-    for (const void* f : updates)
-      if ((err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)UPDATE_SMEM)) != cudaSuccess)
-        return err;
+    }
     st.ready = true;
   }
   *out = &st;
@@ -906,11 +795,11 @@ extern "C" int dsm_blocked_cholesky(void* a, void* work, int G, int n, void* str
     DSM_CHECK(cudaEventRecord(st->panel, side));
     if (rest_pending) DSM_CHECK(cudaStreamWaitEvent(side, st->rest, 0));
     rest_pending = false;
-    if ((long long)(2 * nt - 1) * G >= LOOKAHEAD_FULL_TILES) {
+    // 128-row tiles if they give every multiprocessor two, else 64-row ones
+    if ((long long)(2 * nt - 1) * G >= 2LL * st->sms) {
       lookahead_update_kernel<8><<<dim3(nt > 1 ? 2 * nt - 1 : 1, G), UPDATE_THREADS,
                                    UPDATE_SMEM, side>>>(A, n, S, nt);
     } else {
-      // too few 128-row tiles to fill the card: 64-row tiles, twice as many
       const int ntr = (M + TILE / 2 - 1) / (TILE / 2);
       lookahead_update_kernel<4><<<dim3(ntr > 2 ? 2 * ntr - 2 : ntr, G), UPDATE_THREADS,
                                    UPDATE_SMEM, side>>>(A, n, S, ntr);

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the port's hybrid serving cells, on one
-NVIDIA GPU.
+"""Where the device time goes in the port's cells, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--n 100000]
+    python3 chip_profile.py [--n 100000] [--depth D]
 
-Builds the headline model (V=3, K=4, M=30, depth 2, IsoSE(0, 0), log
-noise -1, seed 0, float32) on ``--n`` points, fits it once with
-``fit(store='hybrid')`` (every bucket cached) to build the kernels, then
-runs under ``torch.profiler`` (CPU + CUDA activities): one more hybrid
-fit, and one cached ``predict`` at T=1 and T=2000. For each, one JSON
-line: the wall-clock, the device time summed over all kernels, the
-blocked Cholesky kernel's share, split by its CUDA kernels (first diagonal
-block of an outer panel / panel step with the next diagonal block /
-lookahead update / trailing update) with the count of panel steps, and the
-kernels with the most device time. The blocked kernel overlaps its serial
-chain with its trailing update on two streams, so the sum of its kernels'
-times exceeds the time it holds the card. Needs a CUDA device; prints
-nothing else.
+Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
+IsoSE(0, 0), log noise -1, seed 0, float32) on ``--n`` points, fits it once
+with ``fit(store='hybrid')`` (every bucket cached) to build the kernels,
+then runs under ``torch.profiler`` (CPU + CUDA activities): one more hybrid
+fit, and one cached ``predict`` at T=1 and T=2000.
+
+With ``--depth D``: the same model on a tree of depth D, and the streamed
+pipeline of the benchmark (``bucketed_streamed_predict`` →
+``update_weights`` → ``_routed_moment_match`` at T=2000), run once to warm
+up and once under the profiler.
+
+For each profiled call, one JSON line: the wall-clock, the device time
+summed over all kernels, split by what the kernels do (the fused
+gram+Cholesky kernel; the blocked Cholesky kernel's four CUDA kernels,
+first diagonal block of an outer panel / panel step with the next diagonal
+block / lookahead update / trailing update, with the count of panel steps;
+cuSOLVER's Cholesky; the triangular solves; matrix products; the rest, the
+gram and masking passes and copies), and the kernels with the most device
+time. The blocked kernel overlaps its serial chain with its trailing
+update on two streams, so the sum of its kernels' times exceeds the time
+it holds the card. Needs a CUDA device; prints nothing else.
 """
 from __future__ import annotations
 
@@ -31,6 +38,12 @@ import numpy as np
 BLOCKED = {"diagonal": "diag_inv_kernel", "panel": "panel_kernel",
            "lookahead_update": "lookahead_update_kernel",
            "trailing_update": "trailing_update_kernel"}
+#: the other groups of kernels, by a part of their names (lower case),
+#: taken in this order; what matches none is "other"
+GROUPS = {"fused_gram_cholesky": ("fused_gram_cholesky",),
+          "cholesky_cusolver": ("potrf", "chol"),
+          "triangular_solves": ("trsm", "trsv"),
+          "matrix_products": ("gemm", "cutlass", "xmma")}
 
 
 def _device_us(evt):
@@ -40,7 +53,19 @@ def _device_us(evt):
     return 0.0
 
 
-def profile(label, fn, top=12):
+def _group(key):
+    if any(name in key for name in BLOCKED.values()):
+        return "blocked_cholesky"
+    low = key.lower()
+    for group, parts in GROUPS.items():
+        if any(p in low for p in parts):
+            return group
+    return "other"
+
+
+def profile(label, fn, top=12, quiet=False):
+    """Run ``fn`` once under ``torch.profiler``; returns (and unless
+    ``quiet`` prints) the JSON record described at the top."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -55,17 +80,25 @@ def profile(label, fn, top=12):
             if _device_us(e) > 0 and not e.key.startswith("aten::")]
     rows.sort(key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
-    split = {part: {"ms": sum(r[2] for r in rows if name in r[0]) / 1e3,
-                    "launches": sum(r[1] for r in rows if name in r[0])}
-             for part, name in BLOCKED.items()}
-    print(json.dumps({
+    blocked = {part: {"ms": sum(r[2] for r in rows if name in r[0]) / 1e3,
+                      "launches": sum(r[1] for r in rows if name in r[0])}
+               for part, name in BLOCKED.items()}
+    split = {g: {"ms": 0.0, "launches": 0}
+             for g in ("blocked_cholesky", *GROUPS, "other")}
+    for key, count, us in rows:
+        g = split[_group(key)]
+        g["ms"] += us / 1e3
+        g["launches"] += count
+    rec = {
         "profile": label, "wall_s": wall, "device_kernels_ms": total / 1e3,
-        "blocked_cholesky_ms": sum(v["ms"] for v in split.values()),
-        "blocked_cholesky_split": split,
-        "panel_steps": split["diagonal"]["launches"] + split["panel"]["launches"],
+        "split": split, "blocked_cholesky_split": blocked,
+        "panel_steps": blocked["diagonal"]["launches"] + blocked["panel"]["launches"],
         "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3}
                 for k, c, us in rows[:top]],
-    }), flush=True)
+    }
+    if not quiet:
+        print(json.dumps(rec), flush=True)
+    return rec
 
 
 def main():
@@ -75,6 +108,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="profile the streamed pipeline on a tree this deep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile.py: no CUDA device")
@@ -86,7 +121,28 @@ def main():
     y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, args.n)
     model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                              log_noise=-1.0, seed=0, device="cuda",
-                             dtype=torch.float32, do_fit=False)
+                             dtype=torch.float32, do_fit=False,
+                             depth=args.depth or 2)
+    if args.depth is not None:
+        import chip_smoke
+
+        pipeline = chip_smoke.streamed_pipeline(model)
+        pipeline()  # builds the kernels, warms the allocator
+        from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+        # the padded factorization work of the fused buckets and of the rest
+        work = {"fused": 0.0, "cusolver": 0.0}
+        for b in model.bucket_batches:
+            kind = ("fused" if fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
+                                                    model.device) else "cusolver")
+            work[kind] += b.num_leaves * b.nmax**3 / 3
+        print(json.dumps({"card": card, "n": args.n, "depth": args.depth,
+                          "leaves": model.num_leaves,
+                          "cholesky_tflop_padded": {k: v / 1e12 for k, v in work.items()},
+                          "bound_s_padded": {k: v / 67e12 for k, v in work.items()}}),
+              flush=True)
+        profile(f"streamed_n{args.n}_depth{args.depth}", pipeline)
+        return
     model.fit(store="hybrid")  # builds the kernels, warms the allocator
     model.update()
     # the factorization work of the cached buckets, padded and valid, and

@@ -11,9 +11,12 @@ non-zero; no phase catches its own failure or falls back to the CPU):
 1. build both CUDA kernels (``deepstructuredmixtures_tpu_torch/csrc``),
    one nvcc per source, in parallel, into ``build/kernels/``;
 2. the fused gram+Cholesky kernel against its plain PyTorch version in
-   float32 and float64 on the card, at the bucket shapes of the fit path,
-   with tied and per-leaf hypers; padding contract checked exactly; both
-   timed with CUDA events;
+   float32 and float64 on the card, at the bucket shapes of the fit paths
+   (the N=20k tree's three buckets, the domain's edges, the leaf chunks of
+   the depth-4 tree at N=100k), with tied and per-leaf hypers; padding
+   contract checked exactly, the error within 5e-4 and 4x the plain
+   version's; kernel, plain version and ``cholesky_ex`` on the ready gram
+   (the factor alone, a yardstick) timed with CUDA events;
 3. the blocked Cholesky kernel against its plain version, against
    ``torch.linalg.cholesky_ex`` in float32 and against float64 on the
    card, at the N=100k headline's G=1 shapes and the ragged batched
@@ -31,6 +34,12 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    domain (neither kernel may launch), plus the wall-clock of the
    streamed fit+update+predict pipeline at T=2000 (neither kernel may
    launch there either);
+5b. the same pipeline on the depth-4 tree at N=100,000 (20,736 leaves,
+   most of them in the fused kernel's domain): the fused kernel must
+   launch once per leaf chunk of its buckets (36) and never on a bucket
+   above 1024; float32 against float64 on the card; the wall-clock (min of
+   3 warm runs) and the fused kernel's share of the device time
+   (``chip_profile.profile``);
 6. hybrid serving at N=20,000: ``fit(store='hybrid')`` caches every
    bucket, the fused kernel factors its 3 buckets and the blocked kernel
    the rest; cached predictions and the alpha-cache mean against float64
@@ -61,10 +70,18 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 #: bucket shapes (leaves, nmax) of the fused kernel: the three fused
-#: buckets of the N=20k headline tree, then the domain's edges
-KERNEL_SHAPES = [(16, 640), (12, 768), (16, 896), (8, 128), (4, 1024)]
-PATH_SHAPES = KERNEL_SHAPES[:3]
+#: buckets of the N=20k headline tree, the domain's edges, then the leaf
+#: chunks of the eight fused buckets of the depth-4 tree at N=100k (the
+#: largest chunk ``fit._bucket_chunk`` cuts from each bucket)
+KERNEL_SHAPES = [(16, 640), (12, 768), (16, 896), (8, 128), (4, 1024),
+                 (1662, 128), (2048, 256), (910, 384), (512, 512), (327, 640),
+                 (227, 768), (167, 896), (128, 1024)]
+#: the shapes of the two trees' fit paths (the kernels line sums them)
+PATH_SHAPES = KERNEL_SHAPES[:3] + KERNEL_SHAPES[5:]
 KERNEL_TOL = 5e-4  # max abs factor error vs float64 (tests/test_pallas_chol.py:71)
+# and within this multiple of the plain version's float32 error on the same
+# input (cuSOLVER's float32 Cholesky of the same gram)
+KERNEL_PLAIN_FACTOR = 4.0
 #: (G, n) of the blocked kernel: the N=100k headline's G=1 shapes, then
 #: the ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k)
 POTRF_SHAPES = [(1, 4576), (1, 8296), (1, 16232), (13, 3176), (17, 1040),
@@ -86,6 +103,7 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 SLICE_TOL = {"evidence_rel": 1e-3, "mean_abs": 5e-3, "var_rel": 1e-3}
 REQUEST_SIZES = (1, 64, 2000)
 T_TEST = 2000
+DEPTH4_N = 100_000  # the depth-4 phase's training points
 
 
 def say(phase: str, **fields):
@@ -195,62 +213,113 @@ def _kernel_inputs(L, N, tied, seed):
     return n, [torch.from_numpy(a).cuda() for a in (x, n, logl, logsigma, noise)]
 
 
-def phase_kernel():
-    """Kernel vs plain on the card; returns (max abs err vs f64, kernel ms
-    and plain ms summed over the fit path's bucket shapes)."""
+def fused_check(out, args, n):
+    """The fused kernel's output ``out`` on ``args``: the contract checked
+    exactly (identity padding, zero strict upper triangle) and the max abs
+    errors over the valid blocks against float64, against the plain
+    version in float32, and of the plain version against float64. Raises
+    if the contract or a bound fails."""
     import torch
 
     from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+    L, N = out.shape[:2]
+    plain = fused_chol.fused_gram_cholesky_reference(*args)
+    ref64 = fused_chol.fused_gram_cholesky_reference(
+        *(a.double() if a.is_floating_point() else a for a in args))
+    ar = torch.arange(N, device=out.device)
+    valid = ar[None, :] < torch.as_tensor(n, device=out.device)[:, None]
+    v2 = valid[:, :, None] & valid[:, None, :]
+
+    def err(a, b):
+        return float(torch.where(v2, (a.double() - b.double()).abs(), 0.0).max())
+
+    errs = dict(max_abs_err_vs_f64=err(out, ref64),
+                max_abs_err_vs_plain_f32=err(out, plain),
+                plain_f32_err_vs_f64=err(plain, ref64))
+    del plain, ref64
+    eye = torch.eye(N, device=out.device).expand(L, N, N)
+    if not torch.equal(out[~v2], eye[~v2]):
+        raise AssertionError(f"padding contract broken at ({L},{N})")
+    if out.triu(1).any():
+        raise AssertionError(f"upper triangle not zero at ({L},{N})")
+    bound = min(KERNEL_TOL, KERNEL_PLAIN_FACTOR * errs["plain_f32_err_vs_f64"])
+    if not (errs["max_abs_err_vs_f64"] <= bound):
+        raise AssertionError(
+            f"fused kernel at ({L},{N}): max abs err vs f64 "
+            f"{errs['max_abs_err_vs_f64']} > {bound} (the smaller of {KERNEL_TOL}"
+            f" and {KERNEL_PLAIN_FACTOR} x the plain version's)")
+    errs["bound"] = bound
+    return errs
+
+
+def fused_bounds(n, L, N):
+    """``(ms, bound_by, padded ms)``: the least time of the card for one
+    fused call on valid sizes ``n``: the gram (2D + 6 operations per
+    element, D = 1) and each leaf's Cholesky of its valid block; x and the
+    per-leaf scalars read once, the factors written once. The padded time
+    counts every leaf at N."""
+    nv = np.asarray(n, np.float64)
+    b_ms, b_by = bound_ms(float(np.sum(nv**3 / 3 + nv**2 * (2 * 1 + 6))),
+                          4 * (L * N * 1 + 4 * L + L * N * N))
+    padded_ms, _ = bound_ms(L * N**3 / 3, 4 * L * N * N)
+    return b_ms, b_by, padded_ms
+
+
+def _reps(L, N):
+    return 20 if L * N**3 < 1e11 else 10
+
+
+def phase_kernel():
+    """Kernel vs plain on the card at ``KERNEL_SHAPES``; returns (max abs
+    err vs f64, kernel ms, plain ms and bound summed over ``PATH_SHAPES``
+    with tied hypers, what bounds them)."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol
+    from deepstructuredmixtures_tpu_torch.ops.cholesky import masked_gram_noise
+    from deepstructuredmixtures_tpu_torch.kernels import gram
 
     worst = 0.0
     path_ms = path_plain_ms = path_bound = 0.0
     path_bound_by = set()
     card = card_line()
+    sms, per_sm, smem = fused_chol.device_info("cuda")
+    if smem != fused_chol.SMEM_BYTES:
+        raise AssertionError(f"the kernel has {smem} bytes of shared memory, "
+                             f"the plan assumes {fused_chol.SMEM_BYTES}")
     for seed, (L, N) in enumerate(KERNEL_SHAPES):
+        plan = fused_chol.launch_plan(L, N, sms)
         for tied in (True, False):
             n, args = _kernel_inputs(L, N, tied, seed)
             out = fused_chol.fused_gram_cholesky(*args)
             torch.cuda.synchronize()
-            plain = fused_chol.fused_gram_cholesky_reference(*args)
-            ref64 = fused_chol.fused_gram_cholesky_reference(
-                *(a.double() if a.is_floating_point() else a for a in args))
-            err64 = err32 = plain_err64 = 0.0
-            for l in range(L):
-                k = int(n[l])
-                o = out[l, :k, :k].double()
-                err64 = max(err64, float((o - ref64[l, :k, :k]).abs().max()))
-                err32 = max(err32, float((o - plain[l, :k, :k].double()).abs().max()))
-                plain_err64 = max(plain_err64, float(
-                    (plain[l, :k, :k].double() - ref64[l, :k, :k]).abs().max()))
-                eye = torch.eye(N - k, device=out.device)
-                if not (torch.equal(out[l, k:, k:], eye)
-                        and not out[l, k:, :k].any()):
-                    raise AssertionError(f"padding contract broken ({L},{N}) leaf {l}")
-            if out.triu(1).any():
-                raise AssertionError(f"upper triangle not zero ({L},{N})")
-            if not (err64 <= KERNEL_TOL):
-                raise AssertionError(
-                    f"kernel vs f64 max abs err {err64} > {KERNEL_TOL} at ({L},{N})")
-            ms = cuda_ms(lambda: fused_chol.fused_gram_cholesky(*args))
-            plain_ms = cuda_ms(lambda: fused_chol.fused_gram_cholesky_reference(*args))
-            worst = max(worst, err64)
-            # this input's work: the gram (2D + 6 operations per element)
-            # and the Cholesky of each leaf's valid block; x and the
-            # per-leaf scalars read once, the factors written once
-            nv = n.astype(np.float64)
-            b_ms, b_by = bound_ms(float(np.sum(nv**3 / 3 + nv**2 * (2 * 1 + 6))),
-                                  4 * (L * N * 1 + 4 * L + L * N * N))
-            padded_ms, _ = bound_ms(L * N**3 / 3, 4 * L * N * N)
+            errs = fused_check(out, args, n)
+            del out
+            reps = _reps(L, N)
+            ms = cuda_ms(lambda: fused_chol.fused_gram_cholesky(*args), reps=reps)
+            plain_ms = cuda_ms(lambda: fused_chol.fused_gram_cholesky_reference(*args),
+                               reps=reps)
+            # a yardstick for the factor alone: cuSOLVER on the ready gram
+            x, nn, logl, logsigma, noise = args
+            mask = torch.arange(N, device=x.device)[None, :] < nn[:, None]
+            Kn = masked_gram_noise(gram("iso_se", logl[:, None], logsigma, x, x),
+                                   mask, noise, 1e-8)
+            chol_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(Kn), reps=reps)
+            del Kn
+            torch.cuda.empty_cache()
+            worst = max(worst, errs["max_abs_err_vs_f64"])
+            b_ms, b_by, padded_ms = fused_bounds(n, L, N)
             if tied and (L, N) in PATH_SHAPES:
                 path_ms += ms
                 path_plain_ms += plain_ms
                 path_bound += b_ms
                 path_bound_by.add(b_by)
             say("kernel", L=L, N=N, hypers="tied" if tied else "per-leaf",
-                max_abs_err_vs_f64=err64, max_abs_err_vs_plain_f32=err32,
-                plain_f32_err_vs_f64=plain_err64, kernel_ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_padded_ms=padded_ms, card=card)
+                blocks_per_leaf=plan.blocks_per_leaf, grid=plan.grid,
+                blocks_per_sm=per_sm, **errs, kernel_ms=ms, plain_ms=plain_ms,
+                cholesky_ex_factor_only_ms=chol_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_padded_ms=padded_ms, kernel_over_bound=ms / b_ms, card=card)
     return worst, path_ms, path_plain_ms, path_bound, (
         "operations" if path_bound_by == {"operations"} else "bytes")
 
@@ -394,13 +463,13 @@ def _slice(n_train, dtype):
                 predict_launches=predict_launches)
 
 
-def slice_errors(run32, run64):
+def slice_errors(run32, run64, sizes=REQUEST_SIZES):
     """Float32 run against float64 run: relative evidence error, max abs
     mean error and max relative variance error over the request sizes."""
     z32, z64 = run32["z"], run64["z"]
     errs = {"evidence_rel": abs(z32 - z64) / abs(z64), "mean_abs": 0.0,
             "var_rel": 0.0}
-    for size in REQUEST_SIZES:
+    for size in sizes:
         m32, v32 = run32["preds"][size]
         m64, v64 = run64["preds"][size]
         errs["mean_abs"] = max(errs["mean_abs"], float((m32 - m64).abs().max()))
@@ -448,10 +517,11 @@ def phase_slice(n_train, expect_kernel):
     return run32, run64
 
 
-def headline_times(model):
-    """Seconds of three warm, synchronized runs of the fused fit + update +
-    routed predict at T=2000, as the benchmark composes it, and the last
-    run's moments."""
+def streamed_pipeline(model):
+    """The benchmark's streamed pipeline on ``model`` at the T=2000 test
+    points: ``bucketed_streamed_predict`` → ``update_weights`` →
+    ``_routed_moment_match``. Returns a function that runs it once,
+    synchronized, and gives ``(mean, var, root evidence)``."""
     import torch
 
     from deepstructuredmixtures_tpu_torch import fit as fitlib
@@ -471,13 +541,20 @@ def headline_times(model):
         lw, z = inferlib.update_weights(model.plan, mll)
         mean, v = _routed_moment_match(model.plan, mu, var, lw, ti, tm, T_TEST)
         torch.cuda.synchronize()
-        return mean, v
+        return mean, v, z
 
-    mean, v = pipeline()  # warm
+    return pipeline
+
+
+def headline_times(model):
+    """Seconds of three warm, synchronized runs of the streamed pipeline
+    (:func:`streamed_pipeline`), and the last run's moments."""
+    pipeline = streamed_pipeline(model)
+    mean, v, _ = pipeline()  # warm
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        mean, v = pipeline()
+        mean, v, _ = pipeline()
         times.append(time.perf_counter() - t0)
     return times, mean, v
 
@@ -494,6 +571,88 @@ def phase_headline(model):
         raise AssertionError("headline pipeline gave non-finite moments")
     say("headline", metric="dsmgp_v3k4_fit_update_predict_n100000_t2000_wallclock",
         seconds=min(times), runs=times, dtype=str(model.dtype), card=card_line())
+
+
+def _depth4_model(dtype):
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(DEPTH4_N)
+    return tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                            log_noise=-1.0, seed=0, device="cuda", dtype=dtype,
+                            do_fit=False, depth=4)
+
+
+def phase_depth4():
+    """The headline pipeline on the depth-4 tree at N=100k, where most
+    leaves fall in the fused kernel's domain: the kernel must launch once
+    per leaf chunk of each fused bucket and never on a bucket above 1024;
+    the float32 run's evidence and moments against float64 on the card;
+    the wall-clock (min of 3 warm runs) and the fused kernel's share of the
+    device time under ``torch.profiler``. Returns the kernel's launches in
+    one run of the pipeline."""
+    import torch
+
+    import chip_profile
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+    t0 = time.perf_counter()
+    model = _depth4_model(torch.float32)
+    build_s = time.perf_counter() - t0
+    expected = _expected_launches(model)[0]
+    fused = [(nm, len(ids)) for nm, ids in zip(model.bucket_spec.nmaxs,
+                                               model.bucket_spec.leaf_ids)
+             if fused_chol.supported(nm, model.dtype, model.layout.kinds,
+                                     model.device)]
+    # every shape the kernel is called with, for this phase only
+    shapes = []
+    kernel = fused_chol.fused_gram_cholesky
+
+    def recording(x, *args, **kw):
+        shapes.append(tuple(x.shape[:2]))
+        return kernel(x, *args, **kw)
+
+    pipeline = streamed_pipeline(model)
+    fused_chol.fused_gram_cholesky = recording
+    try:
+        reset_launches()
+        pipeline()  # the first run builds nothing new: phase 1 built the kernels
+        got, blocked = launches()
+    finally:
+        fused_chol.fused_gram_cholesky = kernel
+    if got != expected or blocked:
+        raise AssertionError(f"depth 4: fused launches {got} (expected {expected}),"
+                             f" blocked {blocked}")
+    if len(shapes) != got or any(N > fused_chol.MAX_N for _, N in shapes):
+        raise AssertionError(f"depth 4: the fused kernel saw the shapes {shapes}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mean, v, z = pipeline()
+        times.append(time.perf_counter() - t0)
+    prof = chip_profile.profile("streamed_depth4", pipeline, quiet=True)
+    if not prof["device_kernels_ms"] > 0:
+        raise AssertionError("depth 4: the profiler saw no device time")
+    share = prof["split"]["fused_gram_cholesky"]["ms"] / prof["device_kernels_ms"]
+    del pipeline
+    model64 = _depth4_model(torch.float64)
+    mean64, v64, z64 = streamed_pipeline(model64)()
+    del model64
+    run32 = {"z": float(z), "preds": {T_TEST: (mean, v)}}
+    run64 = {"z": float(z64), "preds": {T_TEST: (mean64, v64)}}
+    errs = slice_errors(run32, run64, sizes=(T_TEST,))
+    for key, tol in SLICE_TOL.items():
+        if not (errs[key] <= tol):
+            raise AssertionError(f"depth 4: f32 vs f64 {key} = {errs[key]} > {tol}")
+    say(f"depth4_n{DEPTH4_N}", leaves=model.num_leaves,
+        buckets=len(model.bucket_spec.nmaxs), fused_buckets=fused,
+        fused_launches=got, fused_launches_expected=expected,
+        fused_shapes=shapes, build_s=build_s,
+        metric="dsmgp_v3k4_depth4_fit_update_predict_n100000_t2000_wallclock",
+        seconds=min(times), runs=times, evidence_f32=float(z),
+        evidence_f64=float(z64),
+        errors_f32_vs_f64=errs, tolerances=SLICE_TOL,
+        fused_share_of_device_time=share, profile=prof, card=card_line())
+    return got
 
 
 def _expected_launches(model):
@@ -679,7 +838,9 @@ def main():
     run20k, run20k64 = phase_slice(20_000, expect_kernel=True)
     run100k, run100k64 = phase_slice(100_000, expect_kernel=False)
     phase_headline(run100k["model"])
-    run20k_launches = run20k["fit_launches"] + run20k["predict_launches"]
+    depth4_launches = phase_depth4()
+    fused_launches = (run20k["fit_launches"] + run20k["predict_launches"]
+                      + depth4_launches)
     phase_hybrid_20k(run20k, run20k64)
     del run20k, run20k64
     blocked_launches = phase_hybrid_100k(run100k, run100k64)
@@ -690,7 +851,7 @@ def main():
         "route": "cuda",
         "source": "deepstructuredmixtures_tpu_torch/csrc/fused_gram_cholesky.cu",
         "replaces": "deepstructuredmixtures_tpu/ops/pallas_chol.py:219",
-        "launches": run20k_launches,
+        "launches": fused_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C interface. It
-is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` (git-ignored) at first use, named by the source's hash
-so that an edited source rebuilds, and loaded with ``ctypes``. The
+Each kernel is one source ``csrc/<name>.cu`` with a plain C interface (it
+may include the shared headers ``csrc/*.cuh``). It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
+(git-ignored) at first use, named by the hash of the source and of the
+headers so that an edited source or header rebuilds, and loaded with
+``ctypes``. The
 compiler's report (registers, shared memory, spills) is kept beside the
 library as ``.log``. :func:`build` starts one ``nvcc`` per missing
 library, all at once.
@@ -31,8 +33,11 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source (it may not be built yet)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    source and headers (it may not be built yet)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -10,11 +10,15 @@ exactly 0. The kernel's design note is at the top of the CUDA source.
 The kernel is built and loaded by ``ops/build.py`` (``nvcc`` on first use,
 a plain C shared library under ``build/kernels/``, ``ctypes``). On a CPU
 tensor :func:`fused_gram_cholesky` runs the plain version; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. How many blocks work on one leaf
+is chosen here, by :func:`launch_plan`, from the batch's shape and the
+card's SM count.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,12 +29,94 @@ from .cholesky import masked_gram_noise
 
 BLOCK = 128
 MAX_N = 1024
+#: the kernel's tile edge: the width of a panel and of a diagonal block
+TILE = 64
+#: most blocks of one leaf (a cluster above the portable 8, which the
+#: kernel's info call allows)
+MAX_CLUSTER = 16
+#: the kernel's static shared memory: the diagonal tile, its inverse and
+#: scratch (``DiagSmem`` of ``csrc/chol_common.cuh``), which the two
+#: operand tiles of a product overlay; ``chip_smoke.py`` checks it against
+#: what the compiled kernel reports
+SMEM_BYTES = 4 * (2 * TILE * (TILE + 1) + 32 * 33 + TILE)
+#: the shared memory one block may use on an H100
+SMEM_LIMIT = 232_448
 
 #: kernel launches so far (one per call of the CUDA path)
 LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_INFO_ARGTYPES = [ctypes.POINTER(ctypes.c_int)] * 2
+#: per device index: (SMs, resident blocks of the kernel per SM, its
+#: static shared memory in bytes)
+_DEVICE_INFO: Dict[int, Tuple[int, int, int]] = {}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of the kernel covers its ``leaves``: ``blocks_per_leaf``
+    blocks (a thread-block cluster when above 1) on each leaf,
+    ``leaves_per_block`` leaves on each block, ``grid`` blocks in all, each
+    with ``smem_bytes`` of shared memory."""
+
+    leaves: int
+    n: int
+    blocks_per_leaf: int
+    leaves_per_block: int
+    grid: int
+    smem_bytes: int
+
+    def block_leaves(self, block: int):
+        """``(leaf, rank)`` pairs that block ``block`` works on: its rank
+        within each leaf's cluster."""
+        group, rank = divmod(block, self.blocks_per_leaf)
+        first = group * self.leaves_per_block
+        return [(leaf, rank) for leaf in
+                range(first, min(first + self.leaves_per_block, self.leaves))]
+
+
+def launch_plan(L: int, N: int, sms: int) -> LaunchPlan:
+    """The kernel's launch for ``L`` leaves of ``N`` rows on a card of
+    ``sms`` SMs, as measured on an H100 (``chip_fused_ab.py --sweep``):
+    one block per leaf from ``2 * sms`` leaves on (two such blocks share an
+    SM, so one leaf's serial diagonal chain runs beside another leaf's
+    products); two from ``sms / 2`` leaves (fewer blocks would leave SMs
+    with one leaf and nothing to hide its chain behind); below that, the
+    largest cluster of 2-16 blocks that still gives every block an SM of
+    its own and no more blocks than the first step has update tiles."""
+    tiles = N // TILE
+    useful = min(MAX_CLUSTER, max(1, tiles * (tiles - 1) // 2))
+    if L >= 2 * sms:
+        c = 1
+    elif 2 * L >= sms:
+        c = min(2, useful)
+    else:
+        c = 1
+        while 2 * c <= useful and L * 2 * c <= sms:
+            c *= 2
+    return LaunchPlan(leaves=L, n=N, blocks_per_leaf=c, leaves_per_block=1,
+                      grid=L * c, smem_bytes=SMEM_BYTES)
+
+
+def device_info(device) -> Tuple[int, int, int]:
+    """``(SMs, resident blocks of the kernel per SM, its static shared
+    memory)`` of a CUDA device, asked once per device, before the first
+    launch there (builds the kernel; allows its clusters of 16)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _DEVICE_INFO:
+        fn = build.load("fused_gram_cholesky", "dsm_fused_gram_cholesky_info",
+                        _INFO_ARGTYPES)
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(ctypes.byref(blocks), ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"fused_gram_cholesky: CUDA error {err} in its info")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _DEVICE_INFO[index] = (sms, blocks.value, smem.value)
+    return _DEVICE_INFO[index]
 
 
 def supported(nmax: int, dtype, kinds, device) -> bool:
@@ -92,12 +178,14 @@ def fused_gram_cholesky(x, n, logl, logsigma, noise, eps: float = EPS):
     out = torch.empty((L, N, N), dtype=torch.float32, device=x.device)
     if L == 0:
         return out
+    plan = launch_plan(L, N, device_info(x.device)[0])
     fn = build.load("fused_gram_cholesky", "dsm_fused_gram_cholesky", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             x.data_ptr(), n.data_ptr(), logl.data_ptr(), logsigma.data_ptr(),
-            noise.data_ptr(), out.data_ptr(), L, N, D, eps, stream)
+            noise.data_ptr(), out.data_ptr(), L, N, D, eps,
+            plan.blocks_per_leaf, stream)
     if err != 0:
         raise RuntimeError(f"fused_gram_cholesky: CUDA error {err} at launch")
     LAUNCHES += 1

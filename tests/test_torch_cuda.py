@@ -99,6 +99,48 @@ def test_cuda_kernel_matches_plain(cuda_device, L, N, tied):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "per-leaf"])
+@pytest.mark.parametrize("L,N", [(300, 128), (64, 512), (16, 1024), (5, 640),
+                                 (133, 256), (67, 384)])
+def test_cuda_kernel_launch_plans(cuda_device, L, N, tied):
+    """The kernel in each regime of its launch plan (one block per leaf
+    when the leaves fill the card, clusters of 2-8 otherwise; L = 5 and
+    67 fill no whole number of waves) against the plain version and
+    float64, with ragged valid sizes down to one row and one tile."""
+    arrays = kernel_inputs(L, N, tied, seed=L + N)
+    x, n = arrays[0], arrays[1]
+    n[1:4] = [1, 64, 65]
+    x[1:4] = 0.0
+    rng = np.random.default_rng(N)
+    for l in range(1, 4):
+        x[l, : n[l], 0] = np.sort(rng.uniform(0.0, 1.0, n[l]))
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    plan = fused_chol.launch_plan(L, N, fused_chol.device_info(cuda_device)[0])
+    assert plan.grid == L * plan.blocks_per_leaf
+    out = fused_chol.fused_gram_cholesky(*args)
+    torch.cuda.synchronize()
+    plain = fused_chol.fused_gram_cholesky_reference(*args).cpu().numpy()
+    ref64 = fused_chol.fused_gram_cholesky_reference(
+        *(a.double() if a.is_floating_point() else a for a in args)).cpu().numpy()
+    out = out.cpu().numpy()
+    check_contract(out, n)
+    err = max(np.abs(out[l, :k, :k] - ref64[l, :k, :k]).max() for l, k in enumerate(n))
+    plain_err = max(np.abs(plain[l, :k, :k] - ref64[l, :k, :k]).max()
+                    for l, k in enumerate(n))
+    # the bounds of chip_smoke.py's phase 2
+    assert err < TOL and err <= 4 * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_info(cuda_device):
+    """The shared memory the launch plan assumes is the compiled kernel's,
+    and two of its blocks fit on an SM."""
+    sms, per_sm, smem = fused_chol.device_info(cuda_device)
+    assert smem == fused_chol.SMEM_BYTES <= fused_chol.SMEM_LIMIT
+    assert sms > 0 and per_sm >= 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g,n", [(3, 200), (2, 1040), (1, 2048), (1, 257),
                                  (2, 300), (1, 520), (3, 256), (1, 37),
                                  (2, 1030), (1, 1290)])

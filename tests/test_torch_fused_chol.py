@@ -69,3 +69,49 @@ def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _fused_chunk_shapes(n, depth):
+    """``(leaves, nmax)`` of every launch of the fused kernel in one
+    streamed pass over the headline model's tree of ``depth`` at N=``n``
+    (chip_smoke.py's data): each fused bucket cut by ``fit._bucket_chunk``,
+    the last chunk ragged."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 1.0, n)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, n)
+    m = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                         log_noise=-1.0, seed=0, device="cpu",
+                         dtype=torch.float32, do_fit=False, depth=depth)
+    shapes = []
+    for nmax, ids in zip(m.bucket_spec.nmaxs, m.bucket_spec.leaf_ids):
+        if fused_chol.supported(nmax, torch.float32, m.layout.kinds, "cuda"):
+            c = fitlib._bucket_chunk(nmax, len(ids), torch.float32)
+            shapes += [(min(c, len(ids) - s), nmax) for s in range(0, len(ids), c)]
+    return shapes
+
+
+@pytest.mark.parametrize("n,depth,launches", [(20_000, 2, 3), (20_000, 3, 8),
+                                              (100_000, 4, 36)])
+def test_launch_plan_covers_every_leaf(n, depth, launches):
+    """At every fused launch of the N=20k (depth 2 and 3) and N=100k
+    (depth 4) trees, on an H100's 132 SMs: every (leaf, rank) pair of the
+    plan is one block's, each leaf gets all ranks of its cluster, and a
+    block's shared memory stays within the card's 227 KB."""
+    shapes = _fused_chunk_shapes(n, depth)
+    assert len(shapes) == launches
+    for L, N in shapes:
+        plan = fused_chol.launch_plan(L, N, 132)
+        c = plan.blocks_per_leaf
+        assert c in (1, 2, 4, 8, 16) and plan.leaves_per_block >= 1
+        assert plan.smem_bytes <= fused_chol.SMEM_LIMIT
+        if L >= 2 * 132:  # the leaves fill the card twice: one block each
+            assert c == 1
+        elif 2 * L >= 132:  # two, where a 128-row leaf has work for two
+            assert c == (2 if N > 128 else 1)
+        else:  # each block on an SM of its own
+            assert L * c <= 132
+        seen = [pair for b in range(plan.grid) for pair in plan.block_leaves(b)]
+        assert sorted(seen) == [(l, r) for l in range(L) for r in range(c)]

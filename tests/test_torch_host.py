@@ -8,11 +8,16 @@ import torch
 import deepstructuredmixtures_tpu as dsm
 import deepstructuredmixtures_tpu_torch as tdsm
 
-# (seed, N, D, kernel mixture?) — three 1-D headline-like trees and one
-# 2-D kernel-mixture tree (leaf-level sums draw Dirichlet weights from the
-# same RNG stream)
+# (seed, N, D, kernel mixture?[, depth]) — three 1-D headline-like trees,
+# one 2-D kernel-mixture tree (leaf-level sums draw Dirichlet weights from
+# the same RNG stream), and the N=20k tree at depth 3 (1,728 leaves, eight
+# buckets in the fused kernel's domain)
 CASES = [(0, 2000, 1, False), (1, 2000, 1, False), (2, 1800, 1, False),
-         (3, 1500, 2, True)]
+         (3, 1500, 2, True), (0, 20000, 1, False, 3)]
+
+
+def _case_id(c):
+    return f"seed{c[0]}-d{c[2]}" + (f"-n{c[1]}-depth{c[4]}" if len(c) > 4 else "")
 
 
 def _data(seed, n, d):
@@ -24,16 +29,18 @@ def _data(seed, n, d):
     return x, y
 
 
-@pytest.fixture(scope="module", params=CASES, ids=lambda c: f"seed{c[0]}-d{c[2]}")
+@pytest.fixture(scope="module", params=CASES, ids=_case_id)
 def pair(request):
-    seed, n, d, mixture = request.param
+    seed, n, d, mixture = request.param[:4]
+    depth = request.param[4] if len(request.param) > 4 else 2
     x, y = _data(seed, n, d)
     if mixture:
         kj = [dsm.IsoSE(0.0, 0.0), dsm.IsoLinear(0.1)]
         kt = [tdsm.IsoSE(0.0, 0.0), tdsm.IsoLinear(0.1)]
     else:
         kj, kt = dsm.IsoSE(0.0, 0.0), tdsm.IsoSE(0.0, 0.0)
-    common = dict(V=3, K=4, M=30, log_noise=-1.0, seed=seed, do_fit=False)
+    common = dict(V=3, K=4, M=30, log_noise=-1.0, seed=seed, do_fit=False,
+                  depth=depth)
     jm = dsm.build_dsmgp(x, y, kernel=kj, overlap=False, **common)
     tm = tdsm.build_dsmgp(x, y, kernel=kt, device="cpu", **common)
     return jm, tm

@@ -81,6 +81,34 @@ def test_predict_matches(runs):
     np.testing.assert_allclose(t["var"], j["var"], rtol=RTOL)
 
 
+@pytest.fixture(scope="module")
+def runs_depth3():
+    """The same pipeline on a depth-3 tree (N=1500: 961 leaves of at most
+    128 rows, all in one bucket of the fused kernel's domain): per side the
+    root mll, sum weights and routed moments at 300 test points."""
+    x, y = _data(n=1500)
+    xt = np.linspace(-0.05, 1.05, 300).reshape(-1, 1)
+    common = dict(V=3, K=4, M=30, log_noise=-1.0, seed=0, do_fit=False, depth=3)
+    jm = dsm.build_dsmgp(x, y, kernel=dsm.IsoSE(0.0, 0.0), overlap=False, **common)
+    jm.fit(store="light", cache_alpha=False)
+    jres = dict(mll=jm.mll(), z=jm.update(), weights=np.asarray(jm.logweights))
+    jres["mean"], jres["var"] = (np.asarray(a) for a in jm.predict(xt))
+    tm = tdsm.build_dsmgp(x, y, kernel=tdsm.IsoSE(0.0, 0.0), device="cpu", **common)
+    convert.from_jax_arrays(tm, np.asarray(jm.theta))
+    tm.fit(store="light")
+    tres = dict(mll=tm.mll(), z=tm.update(), weights=tm.logweights.numpy())
+    mean, var = tm.predict(xt)
+    tres["mean"], tres["var"] = mean.numpy(), var.numpy()
+    assert tm.num_leaves == jm.num_leaves > 900
+    return jres, tres
+
+
+@pytest.mark.parametrize("what", ["mll", "z", "weights", "mean", "var"])
+def test_depth3_slice_matches(runs_depth3, what):
+    j, t = runs_depth3
+    np.testing.assert_allclose(t[what], j[what], rtol=RTOL, atol=1e-12)
+
+
 def test_from_jax_arrays_loads_logweights(runs):
     jm, tm, j, t = runs
     x, y = _data()

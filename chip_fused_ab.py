@@ -2,7 +2,7 @@
 """The fused gram+Cholesky kernel against an earlier build of it, in turns
 on one NVIDIA GPU, at the bucket shapes of ``chip_smoke.py``'s phase 2.
 
-    python3 chip_fused_ab.py --parent DIR [--sweep] [--variant SRC ...]
+    python3 chip_fused_ab.py --parent DIR [--sweep]
 
 ``DIR`` holds a checkout of the commit to compare with (for example the
 parent commit unpacked by ``git archive`` into a git-ignored directory of
@@ -14,10 +14,8 @@ tied hypers, one JSON line: the times in the order earlier, this, this,
 earlier (CUDA events, median of the runs), each build's max abs error
 against float64 over the valid blocks, the plain version's, ``cholesky_ex``
 on the ready gram (the factor alone) and the bound. ``--sweep`` also times
-this kernel at every blocks-per-leaf count its launch plan could pick;
-``--variant SRC`` builds another source with this kernel's interface (the
-port's ``csrc`` on its include path) and times it beside this one, in the
-same turns, with its error against float64. Needs a CUDA device.
+this kernel at every blocks-per-leaf count its launch plan could pick.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -47,36 +45,6 @@ def build_earlier(root):
     fn = ctypes.CDLL(lib).dsm_fused_gram_cholesky
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def build_variant(src, tag):
-    """A variant source with this kernel's C interface, built beside it."""
-    from deepstructuredmixtures_tpu_torch.ops import build
-
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    lib = str(build.BUILD_DIR / f"libfused_variant_{tag}.so")
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    res = subprocess.run([nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib,
-                          src], capture_output=True, text=True)
-    if res.returncode != 0:
-        print(json.dumps({"variant": src, "nvcc_failed": res.stderr[-3000:]}),
-              flush=True)
-        return None
-    print(json.dumps({"variant": src, "ptxas": [
-        l.strip() for l in (res.stdout + res.stderr).splitlines()
-        if "registers" in l or "spill" in l]}), flush=True)
-    from deepstructuredmixtures_tpu_torch.ops import fused_chol
-
-    handle = ctypes.CDLL(lib)
-    info = handle.dsm_fused_gram_cholesky_info  # once, before a launch
-    info.argtypes = fused_chol._INFO_ARGTYPES
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    if info(ctypes.byref(blocks), ctypes.byref(smem)) != 0:
-        raise RuntimeError(f"{src}: its info call failed")
-    fn = handle.dsm_fused_gram_cholesky
-    fn.argtypes = fused_chol._ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -123,8 +91,6 @@ def main():
                     help="checkout of the commit to compare with")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every blocks-per-leaf count")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="another source with this kernel's interface")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_fused_ab.py: no CUDA device")
@@ -133,8 +99,6 @@ def main():
     this = build.load("fused_gram_cholesky", "dsm_fused_gram_cholesky",
                       fused_chol._ARGTYPES)
     sms = fused_chol.device_info("cuda")[0]
-    variants = {f"v{i}": build_variant(src, f"v{i}") for i, src in enumerate(a.variant)}
-    variants = {tag: fn for tag, fn in variants.items() if fn is not None}
     # sums over the N=20k tree's shapes and the depth-4 tree's
     groups = {"n20000": cs.KERNEL_SHAPES[:3], "n100000_depth4": cs.KERNEL_SHAPES[5:]}
     tot = {g: {"earlier_ms": 0.0, "this_ms": 0.0} for g in groups}
@@ -148,10 +112,7 @@ def main():
         errs = {"earlier": valid_err(call(earlier, args), ref64, n),
                 "this": valid_err(call(this, args, plan.blocks_per_leaf), ref64, n),
                 "plain": valid_err(plain, ref64, n)}
-        for tag, fn in variants.items():
-            errs[tag] = valid_err(call(fn, args, plan.blocks_per_leaf), ref64, n)
         del ref64, plain
-        variant_ms = {tag: [] for tag in variants}
         runs = []
         for who in ("earlier", "this", "this", "earlier"):
             if who == "earlier":
@@ -159,9 +120,6 @@ def main():
             else:
                 runs.append(cs.cuda_ms(lambda: call(this, args, plan.blocks_per_leaf),
                                        reps=reps))
-                for tag, fn in variants.items():
-                    variant_ms[tag].append(cs.cuda_ms(
-                        lambda: call(fn, args, plan.blocks_per_leaf), reps=reps))
         x, nn, logl, logsigma, noise = args
         mask = torch.arange(N, device=x.device)[None, :] < nn[:, None]
         Kn = masked_gram_noise(gram("iso_se", logl[:, None], logsigma, x, x),
@@ -188,7 +146,6 @@ def main():
             "this_ms": t_ms, "this_over_earlier": t_ms / e_ms,
             "max_abs_err_vs_f64": errs, "cholesky_ex_factor_only_ms": chol_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_padded_ms": padded_ms,
-            "variants_ms": variant_ms,
             "sweep_ms_by_blocks_per_leaf": sweep, "card": card}), flush=True)
     print(json.dumps({"sum": tot, "card": card}), flush=True)
 

@@ -76,8 +76,11 @@ def profile(label, fn, top=12, quiet=False):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device kernels only: not the operators around them, and not the
+    # runtime's "Command Buffer Full" (the host waiting to enqueue)
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if _device_us(e) > 0 and not e.key.startswith("aten::")]
+            if _device_us(e) > 0 and not e.key.startswith("aten::")
+            and e.key != "Command Buffer Full"]
     rows.sort(key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
     blocked = {part: {"ms": sum(r[2] for r in rows if name in r[0]) / 1e3,

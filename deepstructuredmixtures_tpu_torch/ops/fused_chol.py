@@ -55,25 +55,21 @@ _DEVICE_INFO: Dict[int, Tuple[int, int, int]] = {}
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """How one call of the kernel covers its ``leaves``: ``blocks_per_leaf``
-    blocks (a thread-block cluster when above 1) on each leaf,
-    ``leaves_per_block`` leaves on each block, ``grid`` blocks in all, each
-    with ``smem_bytes`` of shared memory."""
+    """How one call of the kernel covers its ``leaves`` of ``n`` rows:
+    ``blocks_per_leaf`` blocks (a thread-block cluster when above 1) on each
+    leaf, ``grid`` blocks in all, each with ``smem_bytes`` of shared
+    memory."""
 
     leaves: int
     n: int
     blocks_per_leaf: int
-    leaves_per_block: int
     grid: int
     smem_bytes: int
 
-    def block_leaves(self, block: int):
-        """``(leaf, rank)`` pairs that block ``block`` works on: its rank
-        within each leaf's cluster."""
-        group, rank = divmod(block, self.blocks_per_leaf)
-        first = group * self.leaves_per_block
-        return [(leaf, rank) for leaf in
-                range(first, min(first + self.leaves_per_block, self.leaves))]
+    def block_leaf(self, block: int) -> Tuple[int, int]:
+        """``(leaf, rank)`` of block ``block``: the leaf it works on and its
+        rank in that leaf's cluster, as the kernel reads them."""
+        return divmod(block, self.blocks_per_leaf)
 
 
 def launch_plan(L: int, N: int, sms: int) -> LaunchPlan:
@@ -95,8 +91,8 @@ def launch_plan(L: int, N: int, sms: int) -> LaunchPlan:
         c = 1
         while 2 * c <= useful and L * 2 * c <= sms:
             c *= 2
-    return LaunchPlan(leaves=L, n=N, blocks_per_leaf=c, leaves_per_block=1,
-                      grid=L * c, smem_bytes=SMEM_BYTES)
+    return LaunchPlan(leaves=L, n=N, blocks_per_leaf=c, grid=L * c,
+                      smem_bytes=SMEM_BYTES)
 
 
 def device_info(device) -> Tuple[int, int, int]:

@@ -105,7 +105,7 @@ def test_launch_plan_covers_every_leaf(n, depth, launches):
     for L, N in shapes:
         plan = fused_chol.launch_plan(L, N, 132)
         c = plan.blocks_per_leaf
-        assert c in (1, 2, 4, 8, 16) and plan.leaves_per_block >= 1
+        assert c in (1, 2, 4, 8, 16)
         assert plan.smem_bytes <= fused_chol.SMEM_LIMIT
         if L >= 2 * 132:  # the leaves fill the card twice: one block each
             assert c == 1
@@ -113,5 +113,5 @@ def test_launch_plan_covers_every_leaf(n, depth, launches):
             assert c == (2 if N > 128 else 1)
         else:  # each block on an SM of its own
             assert L * c <= 132
-        seen = [pair for b in range(plan.grid) for pair in plan.block_leaves(b)]
+        seen = [plan.block_leaf(b) for b in range(plan.grid)]
         assert sorted(seen) == [(l, r) for l in range(L) for r in range(c)]

@@ -100,7 +100,8 @@ def main():
                       fused_chol._ARGTYPES)
     sms = fused_chol.device_info("cuda")[0]
     # sums over the N=20k tree's shapes and the depth-4 tree's
-    groups = {"n20000": cs.KERNEL_SHAPES[:3], "n100000_depth4": cs.KERNEL_SHAPES[5:]}
+    groups = {"n20000": cs.KERNEL_SHAPES[:3],
+              "n100000_depth4": cs.KERNEL_SHAPES[5:13]}
     tot = {g: {"earlier_ms": 0.0, "this_ms": 0.0} for g in groups}
     for seed, (L, N) in enumerate(cs.KERNEL_SHAPES):
         n, args = cs._kernel_inputs(L, N, True, seed)

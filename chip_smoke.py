@@ -29,7 +29,9 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    seed 0) at N=20,000: ``build_dsmgp`` → ``fit`` → ``update`` →
    ``predict`` at 1, 64 and 2000 test points in float32, checked against
    the same calls in float64 on the card; the fused kernel must be
-   launched on both fit and predict, the blocked one never;
+   launched on both fit and predict, the blocked one never; ``fit()``
+   must keep the light store (the monolithic factors would take 6.4 GB,
+   above the full store's 2 GiB);
 5. the same at N=100,000, where every leaf is above the fused kernel's
    domain (neither kernel may launch), plus the wall-clock of the
    streamed fit+update+predict pipeline at T=2000 (neither kernel may
@@ -39,7 +41,8 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    launch once per leaf chunk of its buckets (36) and never on a bucket
    above 1024; float32 against float64 on the card; the wall-clock (min of
    3 warm runs) and the fused kernel's share of the device time
-   (``chip_profile.profile``);
+   (``chip_profile.profile``); the build's seconds with and without the
+   overlap analysis and the shared schedule;
 6. hybrid serving at N=20,000: ``fit(store='hybrid')`` caches every
    bucket, the fused kernel factors its 3 buckets and the blocked kernel
    the rest; cached predictions and the alpha-cache mean against float64
@@ -50,7 +53,17 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    streamed float64 run;
    ``Predictor`` latency of single requests and a ``MicroBatcher`` run of
    16 concurrent requests;
-8. a JSON line of the kernels, the card's name and power limit, and last
+8. the full store and the shared schedule, at N=4,000 (the monolithic
+   batch at nmax 768, factored by the fused kernel) and at N=10,000
+   (nmax 1664, the blocked kernel): ``build_dsmgp(overlap=True)`` →
+   ``fit()``, which must resolve to the full store, → ``update`` →
+   ``predict`` at 1, 64 and 2000 test points in float32 against float64 on
+   the card; ``fit(method='batched')`` against ``fit(method='shared')``
+   (min of 3 warm runs each, the shared fit's schedule, fallbacks and its
+   split into phases); the shared fit's root mll within 1e-8 of the
+   batched one in float64 and its float32 evidence against float64; a
+   full-store predict at T=2000 against a light-store streamed one;
+9. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -70,22 +83,24 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 #: bucket shapes (leaves, nmax) of the fused kernel: the three fused
-#: buckets of the N=20k headline tree, the domain's edges, then the leaf
-#: chunks of the eight fused buckets of the depth-4 tree at N=100k (the
-#: largest chunk ``fit._bucket_chunk`` cuts from each bucket)
+#: buckets of the N=20k headline tree, the domain's edges, the leaf chunks
+#: of the eight fused buckets of the depth-4 tree at N=100k (the largest
+#: chunk ``fit._bucket_chunk`` cuts from each bucket), then the full
+#: store's monolithic batch at N=4k (phase 8)
 KERNEL_SHAPES = [(16, 640), (12, 768), (16, 896), (8, 128), (4, 1024),
                  (1662, 128), (2048, 256), (910, 384), (512, 512), (327, 640),
-                 (227, 768), (167, 896), (128, 1024)]
-#: the shapes of the two trees' fit paths (the kernels line sums them)
+                 (227, 768), (167, 896), (128, 1024), (144, 768)]
+#: the shapes of the fit paths (the kernels line sums them)
 PATH_SHAPES = KERNEL_SHAPES[:3] + KERNEL_SHAPES[5:]
 KERNEL_TOL = 5e-4  # max abs factor error vs float64 (tests/test_pallas_chol.py:71)
 # and within this multiple of the plain version's float32 error on the same
 # input (cuSOLVER's float32 Cholesky of the same gram)
 KERNEL_PLAIN_FACTOR = 4.0
-#: (G, n) of the blocked kernel: the N=100k headline's G=1 shapes, then
-#: the ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k)
+#: (G, n) of the blocked kernel: the N=100k headline's G=1 shapes, the
+#: ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k), then the
+#: full store's leaf chunk at N=10k (phase 8)
 POTRF_SHAPES = [(1, 4576), (1, 8296), (1, 16232), (13, 3176), (17, 1040),
-                (5, 2224)]
+                (5, 2224), (48, 1664)]
 # max abs factor error vs float64: the bound of tests/test_pallas_potrf.py:43,
 # or 4x cholesky_ex's own float32 error on the same input where that is
 # larger (float32 error grows with the condition number at n ~ 16k)
@@ -104,6 +119,11 @@ SLICE_TOL = {"evidence_rel": 1e-3, "mean_abs": 5e-3, "var_rel": 1e-3}
 REQUEST_SIZES = (1, 64, 2000)
 T_TEST = 2000
 DEPTH4_N = 100_000  # the depth-4 phase's training points
+#: phase 8's training sizes and the kernel that must factor the monolithic
+#: batch there: nmax 768 is in the fused kernel's domain, 1664 above it
+FULL_STORE_RUNS = ((4_000, "fused"), (10_000, "blocked"))
+#: float64 root mll, shared fit against batched fit (tests/test_fit.py:140-147)
+SHARED_MLL_TOL = 1e-8
 
 
 def say(phase: str, **fields):
@@ -457,6 +477,8 @@ def _slice(n_train, dtype):
     predict_launches = launches()[0] - fit_launches
     if blocked or launches()[1]:
         raise AssertionError("the blocked kernel launched on the streamed path")
+    if model.posterior is not None:
+        raise AssertionError(f"fit() kept the full store at N={n_train}")
     return dict(model=model, z=z, preds=preds, build_s=build_s, fit_s=fit_s,
                 predict_s=predict_s, fit_launches=fit_launches,
                 predict_launches=predict_launches)
@@ -572,13 +594,13 @@ def phase_headline(model):
         seconds=min(times), runs=times, dtype=str(model.dtype), card=card_line())
 
 
-def _depth4_model(dtype):
+def _depth4_model(dtype, overlap=True):
     import deepstructuredmixtures_tpu_torch as tdsm
 
     x, y = make_data(DEPTH4_N)
     return tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                             log_noise=-1.0, seed=0, device="cuda", dtype=dtype,
-                            do_fit=False, depth=4)
+                            do_fit=False, depth=4, overlap=overlap)
 
 
 def phase_depth4():
@@ -594,9 +616,17 @@ def phase_depth4():
     import chip_profile
     from deepstructuredmixtures_tpu_torch.ops import fused_chol
 
+    from deepstructuredmixtures_tpu_torch.models import FULL_STORE_BYTES
+
+    # the build with and without the overlap analysis and the schedule
+    t0 = time.perf_counter()
+    _depth4_model(torch.float32, overlap=False)
+    build_no_overlap_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     model = _depth4_model(torch.float32)
     build_s = time.perf_counter() - t0
+    if model._factor_bytes() <= FULL_STORE_BYTES:
+        raise AssertionError("fit() would keep the full store at depth 4")
     expected = _expected_launches(model)[0]
     fused = [(nm, len(ids)) for nm, ids in zip(model.bucket_spec.nmaxs,
                                                model.bucket_spec.leaf_ids)
@@ -646,6 +676,7 @@ def phase_depth4():
         buckets=len(model.bucket_spec.nmaxs), fused_buckets=fused,
         fused_launches=got, fused_launches_expected=expected,
         fused_shapes=shapes, build_s=build_s,
+        build_s_overlap_false=build_no_overlap_s,
         metric="dsmgp_v3k4_depth4_fit_update_predict_n100000_t2000_wallclock",
         seconds=min(times), runs=times, evidence_f32=float(z),
         evidence_f64=float(z64),
@@ -825,6 +856,119 @@ def phase_hybrid_100k(run32, run64):
     return blocked
 
 
+def _full_model(n_train, dtype):
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(n_train)
+    return tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                            log_noise=-1.0, seed=0, device="cuda", dtype=dtype,
+                            do_fit=False, overlap=True)
+
+
+def _min_of_3(fn):
+    """``(min, runs)`` of three synchronized calls of ``fn``, which returns
+    its own seconds, after one warm call."""
+    fn()
+    runs = [fn() for _ in range(3)]
+    return min(runs), runs
+
+
+def _predict_seconds(model, xt):
+    import torch
+
+    def run():
+        t0 = time.perf_counter()
+        mean, var = model.predict(xt)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all()):
+            raise AssertionError("non-finite moments")
+        return time.perf_counter() - t0
+
+    return run
+
+
+def phase_full_store(n_train, kernel):
+    """The full store and the shared schedule at ``n_train`` points (see the
+    module docstring, phase 8). Returns the ``(fused, blocked)`` launches
+    of the main path: ``fit()`` → ``update`` → ``predict``."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    t0 = time.perf_counter()
+    model = _full_model(n_train, torch.float32)
+    build_s = time.perf_counter() - t0
+    sched, L = model.schedule, model.num_leaves
+    chunks = math.ceil(L / fitlib.default_chunk(model.plan.nmax, model.dtype))
+    expected = (chunks, 0) if kernel == "fused" else (0, chunks)
+    reset_launches()
+    fit_s = model.fit()
+    if model.posterior is None:
+        raise AssertionError(f"fit() did not keep the full store at N={n_train}")
+    run32 = {"z": model.update()}
+    run32["preds"], predict_s = _timed_predicts(model)
+    path_launches = launches()
+    if path_launches != expected:
+        raise AssertionError(f"N={n_train}: launches {path_launches}, "
+                             f"expected {expected} ({kernel})")
+    model64 = _full_model(n_train, torch.float64)
+    model64.fit(store="full")
+    run64 = {"z": model64.update()}
+    run64["preds"], _ = _timed_predicts(model64)
+    errs = _compare(run32, run64)
+
+    batched_s, batched_runs = _min_of_3(lambda: model.fit(method="batched"))
+    reset_launches()
+    shared_s, shared_runs = _min_of_3(lambda: model.fit(method="shared"))
+    shared_launches = [n // 4 for n in launches()]  # per shared fit
+    fallbacks = dict(model.last_fit_diagnostics)
+    z_shared = model.update()
+    split = {}
+    fitlib.fit_shared(model.layout, model.theta, model.batch, sched,
+                      split=split)
+    evidence_rel = abs(z_shared - run64["z"]) / abs(run64["z"])
+    if not (evidence_rel <= SLICE_TOL["evidence_rel"]):
+        raise AssertionError(f"N={n_train}: shared f32 evidence vs f64 "
+                             f"{evidence_rel} > {SLICE_TOL['evidence_rel']}")
+    mll_batched64 = model64.mll()
+    model64.fit(method="shared", store="full")
+    mll_gap64 = abs(model64.mll() - mll_batched64)
+    if not (mll_gap64 <= SHARED_MLL_TOL):
+        raise AssertionError(f"N={n_train}: f64 shared vs batched root mll "
+                             f"{mll_gap64} > {SHARED_MLL_TOL}")
+    fallbacks64 = dict(model64.last_fit_diagnostics)
+    del model64
+
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    model.fit()
+    full_predict_s, full_runs = _min_of_3(_predict_seconds(model, xt))
+    model.fit(store="light")
+    streamed_predict_s, streamed_runs = _min_of_3(_predict_seconds(model, xt))
+    say(f"full_store_n{n_train}", leaves=L, nmax=model.plan.nmax,
+        kernel=kernel, factor_bytes=model._factor_bytes(), build_s=build_s,
+        fit_s=fit_s, launches_main_path=path_launches,
+        predict_s={str(k): v for k, v in predict_s.items()},
+        errors_f32_vs_f64=errs, tolerances=SLICE_TOL,
+        schedule={"derived_fraction": sched.num_derived / L,
+                  "full": int(sched.full_idx.size),
+                  "copy": int(sched.copy_j.size),
+                  "delete": int(sched.del_j.size),
+                  "continue": int(sched.cont_j.size),
+                  "deletions": int(sched.del_ndel.sum()
+                                   + sched.cont_del_ndel.sum())},
+        batched_fit_s=batched_s, batched_runs=batched_runs,
+        shared_fit_s=shared_s, shared_runs=shared_runs,
+        shared_over_batched=shared_s / batched_s,
+        shared_launches_per_fit=shared_launches, shared_split_s=split,
+        fallbacks_f32=fallbacks, fallbacks_f64=fallbacks64,
+        shared_evidence_f32_rel_vs_f64=evidence_rel,
+        shared_vs_batched_root_mll_f64=mll_gap64,
+        predict_t2000_full_store_s=full_predict_s, full_runs=full_runs,
+        predict_t2000_light_streamed_s=streamed_predict_s,
+        streamed_runs=streamed_runs, card=card_line())
+    return path_launches
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -843,6 +987,11 @@ def main():
     phase_hybrid_20k(run20k, run20k64)
     del run20k, run20k64
     blocked_launches = phase_hybrid_100k(run100k, run100k64)
+    del run100k, run100k64
+    for n_train, kernel in FULL_STORE_RUNS:
+        fused, blocked = phase_full_store(n_train, kernel)
+        fused_launches += fused
+        blocked_launches += blocked
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [{

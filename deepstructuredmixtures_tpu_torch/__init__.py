@@ -2,16 +2,20 @@
 ``deepstructuredmixtures_tpu`` (Deep Structured Mixtures of Gaussian
 Processes), beside the JAX package it is held to.
 
-This package imports ``torch`` and NumPy, never JAX. It covers the
-serving path: ``build_dsmgp`` / ``build_poe`` / ``build_bcm`` (host tree,
-plan and size buckets on an explicit device) → ``fit`` (the light store
-with its alpha cache, or the hybrid store that keeps the largest buckets'
-factors) → ``update`` (posterior sum weights) → ``predict`` (routed
-mixture prediction, or the PoE fusions), plus ``checkpoint`` (the JAX
-package's npz format) and ``serve`` (``Predictor``, ``MicroBatcher``,
-HTTP). The two factorization kernels, fused gram+Cholesky and blocked
-Cholesky, are hand-written CUDA (``csrc/``), built with ``nvcc`` on first
-use.
+This package imports ``torch``, NumPy and scipy (for the sparse leaf
+overlap), never JAX. It covers fitting and serving: ``build_dsmgp`` /
+``build_poe`` / ``build_bcm`` (host tree, plan, size buckets, the
+leaf-overlap matrix and the shared-Cholesky schedule, on an explicit
+device) → ``fit`` (the full store, which keeps every leaf's factor at the
+global nmax and is the default when that fits in 2 GiB; the light store
+with its alpha cache; or the hybrid store that keeps the largest buckets'
+factors; ``method='shared'`` derives factors from overlapping leaves by
+copies, Givens row deletion and continued Cholesky) → ``update`` /
+``infer`` (posterior sum weights) → ``predict`` (routed mixture
+prediction, or the PoE fusions), plus ``checkpoint`` (the JAX package's
+npz format) and ``serve`` (``Predictor``, ``MicroBatcher``, HTTP). The two
+factorization kernels, fused gram+Cholesky and blocked Cholesky, are
+hand-written CUDA (``csrc/``), built with ``nvcc`` on first use.
 
 Importing the package turns TF32 off for float32 matmuls and
 convolutions: grams and Cholesky updates need full float32 (nearby points

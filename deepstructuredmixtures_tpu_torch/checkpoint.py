@@ -18,7 +18,7 @@ import torch
 
 from .hyper import make_layout
 from .kernels import KernelSpec
-from .plan import compile_tree
+from .plan import build_schedule, compile_tree
 from .tree import LeafNode, SplitNode, SumNode
 
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64}
@@ -71,15 +71,15 @@ def _kernel_specs(model):
 
 def save(model, path: str):
     """Write ``model`` (any model class) to ``path`` in the JAX package's
-    npz format. The port has no overlap analysis, so ``overlap`` is
-    stored as false."""
+    npz format, ``overlap`` true when the model has the overlap
+    analysis."""
     meta = {
         "class": type(model).__name__,
         "tree": _tree_to_spec(model.root),
         "kernels": [{"kind": k.kind, "logl": list(k.logl),
                      "logsigma": k.logsigma} for k in _kernel_specs(model)],
         "dtype": str(model.dtype).replace("torch.", ""),
-        "overlap": False,
+        "overlap": model.plan.overlap is not None,
         "pad_multiple": int(model.plan.pad_multiple),
     }
     np.savez_compressed(path, meta=json.dumps(meta), X=np.asarray(model.X),
@@ -92,10 +92,10 @@ def load(path: str, *, device, dtype=None):
     """Restore a model saved by :func:`save` or by the JAX package's
     ``checkpoint.save`` onto ``device``, unfitted (the first ``fit`` or
     ``predict`` fits it). ``dtype`` defaults to the stored one. The plan
-    keeps the stored ``pad_multiple``; the overlap analysis is skipped
-    whatever the file says, since only ``fit(method='shared')`` needs it.
-    The log-weights are kept in float64, the dtype of the port's
-    combine."""
+    keeps the stored ``pad_multiple``, and the overlap analysis and the
+    shared schedule are built when the file's ``overlap`` is true (the
+    default of a file without it), as in the JAX package. The log-weights
+    are kept in float64, the dtype of the port's combine."""
     from . import models as modelslib
 
     data = np.load(path, allow_pickle=False)
@@ -106,10 +106,13 @@ def load(path: str, *, device, dtype=None):
     dtype = dtype or _TORCH_DTYPE[meta["dtype"]]
     X = np.asarray(data["X"])
     y = np.asarray(data["y"])
-    plan = compile_tree(root, X, pad_multiple=int(meta.get("pad_multiple", 8)))
+    overlap = bool(meta.get("overlap", True))
+    plan = compile_tree(root, X, overlap=overlap,
+                        pad_multiple=int(meta.get("pad_multiple", 8)))
     cls = getattr(modelslib, meta["class"])
     model = cls(root, plan, make_layout(kernels), np.asarray(data["theta"]),
-                dtype, device, X, y)
+                dtype, device, X, y,
+                schedule=build_schedule(plan) if overlap else None)
     model.logweights = torch.as_tensor(
         np.asarray(data["logweights"], dtype=np.float64), device=model.device)
     return model

@@ -16,19 +16,23 @@ last chunk is simply shorter; the JAX package pads it to a full chunk for
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .config import EPS
 from .hyper import HyperLayout, unpack
 from .leafgp import (
     LeafBatch,
+    LeafPosterior,
     centered_y,
     leaf_gram,
     leaf_gram_diag,
     leaf_mll_forward,
     leaf_noise,
+    posterior_from_chol,
 )
 from .ops import cholesky as chol
 from .ops import fused_chol, potrf
@@ -354,3 +358,193 @@ def bucketed_hybrid_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
             mu[idx], var[idx], _ = streamed_leaf_predict(
                 layout, th, b, xt, ti, chunk=chunk)
     return mu, var
+
+
+# ---------------------------------------------------------------------------
+# Whole-model fits: the monolithic batch and the full store
+# ---------------------------------------------------------------------------
+
+
+def fit_batched(layout: HyperLayout, theta, batch: LeafBatch,
+                chunk: Optional[int] = None) -> LeafPosterior:
+    """Fresh factorization of every leaf of the monolithic batch, keeping
+    the factors (≙ ``fit_naive!``, ``fit.jl:294-304``; the JAX package's
+    ``fit_batched``). Leaves go ``chunk`` at a time (default: what a 2 GiB
+    workspace holds, :func:`default_chunk`) through
+    :func:`streamed_leaf_factors`, so on CUDA in float32 the fused kernel
+    factors them up to nmax 1024 and the blocked kernel above."""
+    mll, alpha, Lf = streamed_leaf_factors(layout, theta, batch, chunk=chunk)
+    return LeafPosterior(Lf, alpha, mll)
+
+
+def _phase_clock(split: Optional[dict], device):
+    """``tick(key)`` adds the seconds since the previous tick to
+    ``split[key]``, the device synchronized first; a no-op without
+    ``split``, so that an untimed fit never waits on the device."""
+    if split is None:
+        return lambda key: None
+    dev = torch.device(device)
+
+    def now():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    last = [now()]
+
+    def tick(key):
+        t = now()
+        split[key] = split.get(key, 0.0) + t - last[0]
+        last[0] = t
+
+    return tick
+
+
+def _gather_square(M, keep):
+    """``M[g][keep[g]][:, keep[g]]`` for every group: ``M [G, N, N]``,
+    ``keep [G, N]`` (int64)."""
+    G, n, _ = M.shape
+    rows = M.gather(1, keep[:, :, None].expand(G, n, n))
+    return rows.gather(2, keep[:, None, :].expand(G, n, n))
+
+
+def _guard(derived, mask, fresh):
+    """The PSD fallback of the derived factors ``derived`` (in place):
+    those that fail :func:`ops.cholesky.factor_is_valid` are replaced by
+    ``fresh(idx)``, the fresh factors of the leaves ``idx`` of the group.
+    Returns the number replaced."""
+    bad = (~chol.factor_is_valid(derived, mask)).nonzero()[:, 0]
+    if bad.numel():
+        derived[bad] = fresh(bad)
+    return int(bad.numel())
+
+
+def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
+               safe: bool = True, with_diagnostics: bool = False,
+               split: Optional[dict] = None):
+    """Factor-reuse fit following the precompiled ``plan.SharedSchedule``.
+
+    Phase 1 factors the ``full_idx`` leaves (mains and unshareable
+    leaves) through :func:`_factor_kept`, chunk by chunk, so on CUDA in
+    float32 the fused and blocked kernels carry them; then the derived
+    groups, each batched over its leaves: Givens row deletion (subset
+    leaves, ``fit.jl:145-206``), delete-then-continue Cholesky (prefix
+    extensions, ``fit.jl:208-292``) and verbatim copies (identical
+    observation sets, ``fit.jl:132-143``), in that order since a copy's
+    source may be derived.
+
+    ``safe``: a derived factor that fails the PSD guard is refactored from
+    its gram (≙ the reference's ``@warn`` + refactorization,
+    ``fit.jl:197-201,280-290``). ``with_diagnostics`` also returns
+    ``(delete_fallbacks, continue_fallbacks)``. ``split``, a dict, gets
+    the seconds of each phase (``phase1``, ``givens``, ``continue``,
+    ``copy``, ``posterior``), the device synchronized between phases.
+
+    Needs tied hypers (``theta`` 1-D): every derivation assumes a leaf
+    and its main share one covariance function."""
+    if theta.ndim != 1:
+        raise ValueError(
+            "fit_shared requires tied hypers (theta 1-D); per-leaf hypers "
+            "invalidate factor reuse; use fit_batched")
+    L, n = batch.num_leaves, batch.nmax
+    dev = batch.x.device
+    tick = _phase_clock(split, dev)
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.long, device=dev)
+
+    Lf = torch.eye(n, dtype=batch.x.dtype, device=dev).repeat(L, 1, 1)
+    del_fb = cont_fb = 0
+
+    # phase 1: full factorizations (mains and unshareable leaves)
+    full = idx(schedule.full_idx)
+    chunk = default_chunk(n, batch.x.dtype)
+    for s in range(0, full.numel(), chunk):
+        f = full[s:s + chunk]
+        Lf[f] = _factor_kept(layout, theta, batch.take(f))
+    tick("phase1")
+
+    # phase 2a: Givens row deletion, in one wavefront for the strict-subset
+    # leaves and the mains of the continue leaves (which the continue
+    # leaves row-delete down to their leading observations; nothing to
+    # delete for a pure prefix extension)
+    n_del = schedule.del_j.size
+    cont_dels = schedule.cont_del_ndel.max(initial=0) > 0
+    if n_del or cont_dels:
+        mains, pos, ndel = [schedule.del_i], [schedule.del_pos], [schedule.del_ndel]
+        if cont_dels:
+            mains.append(schedule.cont_i)
+            pos.append(schedule.cont_del_pos)
+            ndel.append(schedule.cont_del_ndel)
+        width = max(p.shape[1] for p in pos)
+        pos = np.concatenate([np.pad(p, ((0, 0), (0, width - p.shape[1])))
+                              for p in pos])
+        upd = chol.givens_delete_rows(Lf[idx(np.concatenate(mains))], idx(pos),
+                                      idx(np.concatenate(ndel)))
+    if n_del:
+        sub = batch.take(idx(schedule.del_j))
+        derived = chol.pad_identity(
+            torch.tril(_gather_square(upd[:n_del], idx(schedule.del_keep))),
+            sub.mask)
+        if safe:
+            del_fb = _guard(derived, sub.mask, lambda b: chol.cholesky_nosym(
+                _noisy_gram(layout, theta, sub.take(b))))
+        Lf[idx(schedule.del_j)] = derived
+        del derived
+    tick("givens")
+
+    # phase 2b: continue from row P: the (row-deleted) main's factor
+    # gathered into the leading block
+    if schedule.cont_j.size:
+        sub = batch.take(idx(schedule.cont_j))
+        if cont_dels:
+            Ltop = _gather_square(upd[n_del:], idx(schedule.cont_keep))
+        else:
+            Ltop = Lf[idx(schedule.cont_i)]
+        A = _noisy_gram(layout, theta, sub)
+        derived = chol.pad_identity(
+            chol.chol_continue(A, Ltop, idx(schedule.cont_p)), sub.mask)
+        del Ltop
+        if safe:
+            cont_fb = _guard(derived, sub.mask,
+                             lambda b: chol.cholesky_nosym(A[b]))
+        Lf[idx(schedule.cont_j)] = derived
+        del A, derived
+    if n_del or cont_dels:
+        del upd
+    tick("continue")
+
+    # phase 2c: verbatim copies, last (identical observation sets give
+    # identical covariances under tied hypers)
+    if schedule.copy_j.size:
+        Lf[idx(schedule.copy_j)] = Lf[idx(schedule.copy_i)]
+    tick("copy")
+
+    post = posterior_from_chol(Lf, batch)
+    tick("posterior")
+    if with_diagnostics:
+        return post, (del_fb, cont_fb)
+    return post
+
+
+def fit(layout: HyperLayout, theta, batch: LeafBatch, schedule=None,
+        method: str = "auto", chunk: Optional[int] = None, safe: bool = True,
+        with_diagnostics: bool = False, split: Optional[dict] = None):
+    """Whole-model posterior fit: ``'batched'`` (≙ ``fit_naive!``),
+    ``'shared'`` (≙ ``fit!``) or ``'auto'``, which resolves to batched as
+    in the JAX package: factor reuse measured slower there on the TPU and
+    on the CPU (its ``fit.fit`` docstring); the H100's numbers are in
+    ``PERF.md``. ``with_diagnostics`` also returns the PSD-fallback counts
+    (``(0, 0)`` on the batched path); ``split`` goes to
+    :func:`fit_shared`."""
+    if method == "auto":
+        method = "batched"
+    if method == "shared":
+        if schedule is None:
+            raise ValueError("method='shared' requires a schedule")
+        return fit_shared(layout, theta, batch, schedule, safe=safe,
+                          with_diagnostics=with_diagnostics, split=split)
+    if method != "batched":
+        raise ValueError(f"unknown method {method!r}")
+    post = fit_batched(layout, theta, batch, chunk=chunk)
+    return (post, (0, 0)) if with_diagnostics else post

@@ -5,7 +5,11 @@ fit/update/predict part of ``deepstructuredmixtures_tpu/infer.py``).
 * ``upward`` — level-wise gather + segment-reduce over the plan's groups
   (≙ the ``mll``/``mll!`` recursions, ``optimize.jl:18-39``);
 * ``update_weights`` — posterior sum-weight update and root log evidence
-  (≙ ``update!``, ``common.jl:323-334``);
+  (≙ ``update!``, ``common.jl:323-334``); ``infer_weights`` (≙
+  ``infer!``) and ``reset_weights`` (≙ ``reset_weights!``);
+* ``leaf_responsibilities`` — each leaf's posterior responsibility, the
+  gradient of the root mll with respect to the leaf mlls;
+* ``leaf_membership`` — which leaves' boxes hold each test point;
 * ``path_logweights`` — each leaf's mixture log-weight, the sum of the
   sum-edge log-weights on its root-to-leaf path;
 * ``predict_poe`` / ``predict_gpoe`` / ``predict_rbcm`` — the product-of-
@@ -89,6 +93,47 @@ def update_weights(plan: SPNPlan, leaf_mlls):
         z = _segment_logsumexp(raw, seg, g.n_parents)
         lw[_index(g.edge_ids, dev)] = raw - z[seg]
     return lw, vals[plan.root_slot]
+
+
+def infer_weights(plan: SPNPlan, leaf_mlls):
+    """≙ ``infer!`` (``common.jl:336-355``): :func:`update_weights`, then
+    every sum node above the leaf-level kernel-mixture sums reset to
+    uniform. Returns ``(logweights [E], z_root)`` in float64."""
+    lw, z = update_weights(plan, leaf_mlls)
+    dev = lw.device
+    is_leaf_sum = torch.as_tensor(plan.edge_is_leaf_sum, device=dev)
+    uniform = torch.as_tensor(plan.edge_neg_logk, dtype=lw.dtype, device=dev)
+    return torch.where(is_leaf_sum, lw, uniform), z
+
+
+def leaf_responsibilities(plan: SPNPlan, leaf_mlls):
+    """Posterior responsibility of every leaf under uniform sum weights,
+    ``w_l = exp(mll_l + path_prefix − root)`` (≙ the per-leaf weight of
+    ``∇mll!``, ``optimize.jl:42-89``): the gradient of the root mll with
+    respect to the leaf mlls, in float64. Returns ``[L]``, summing to one
+    per mixture path."""
+    lm = leaf_mlls.detach().double().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(root_mll(plan, lm), lm)
+    return g
+
+
+def reset_weights(plan: SPNPlan, device=None):
+    """Uniform ``-log K`` weights on every sum edge, float64 (≙
+    ``reset_weights!``, ``common.jl:357-363``)."""
+    return torch.as_tensor(plan.edge_neg_logk, dtype=torch.float64,
+                           device=device)
+
+
+def leaf_membership(plan: SPNPlan, xt):
+    """Boolean ``[T, L]``: leaf active iff ``lb < x <= ub`` in every
+    dimension, which is the recursive split routing (``getchild``,
+    ``common.jl:101-122``), since split segments are half-open and sum
+    children share the parent's box. ``xt [T, D]`` tensor."""
+    lb = torch.as_tensor(plan.leaf_lb, dtype=xt.dtype, device=xt.device)
+    ub = torch.as_tensor(plan.leaf_ub, dtype=xt.dtype, device=xt.device)
+    ok = (xt[:, None, :] > lb[None]) & (xt[:, None, :] <= ub[None])
+    return torch.all(ok, dim=-1)
 
 
 def path_logweights(plan: SPNPlan, logweights):

@@ -1,6 +1,5 @@
 """Batched leaf-GP math over padded ``[L, Nmax, ...]`` blocks (counterpart
-of ``deepstructuredmixtures_tpu/leafgp.py``, the parts the fit/predict
-path uses).
+of ``deepstructuredmixtures_tpu/leafgp.py``, forward only).
 
 Padding contract: each leaf occupies rows ``< n[l]`` of ``Nmax``; padded
 rows carry ``y = 0`` and identity covariance rows, making them exact
@@ -14,6 +13,7 @@ import numpy as np
 import torch
 
 from . import hyper as hyperlib
+from .config import EPS
 from .kernels import gram, gram_diag
 from .ops import cholesky as chol
 
@@ -47,6 +47,21 @@ class LeafBatch(NamedTuple):
     def rows(self, start: int, stop: int) -> "LeafBatch":
         """The leaves ``start:stop`` (views, no copy)."""
         return LeafBatch(*(a[start:stop] for a in self))
+
+    def take(self, idx) -> "LeafBatch":
+        """The leaves at the index tensor ``idx`` (a gathered copy)."""
+        return LeafBatch(*(a[idx] for a in self))
+
+
+class LeafPosterior(NamedTuple):
+    """Fitted per-leaf posterior of the full store: ``chol [L, Nmax,
+    Nmax]`` lower factors (identity on padding), ``alpha [L, Nmax]``
+    weights and ``mll [L]`` marginal log-likelihoods (≙ the reference's
+    cached ``gp.cK`` / ``gp.α``, ``gaussianprocess.jl:33-35``)."""
+
+    chol: torch.Tensor
+    alpha: torch.Tensor
+    mll: torch.Tensor
 
 
 def centered_y(batch: LeafBatch):
@@ -126,3 +141,47 @@ def leaf_mll_forward(Lf, z, batch: LeafBatch):
     logdet = chol.masked_logdet(Lf, batch.mask)
     nn = batch.n.to(Lf.dtype)
     return -0.5 * (quad + logdet + nn * LOG2PI)
+
+
+def leaf_mll(Lf, yc, alpha, batch: LeafBatch):
+    """``-(y'α + logdet + N log 2π) / 2`` per leaf
+    (≙ ``gaussianprocess.jl:163``)."""
+    quad = torch.sum(yc * alpha, dim=-1)
+    logdet = chol.masked_logdet(Lf, batch.mask)
+    nn = batch.n.to(Lf.dtype)
+    return -0.5 * (quad + logdet + nn * LOG2PI)
+
+
+def posterior_from_chol(Lf, batch: LeafBatch) -> LeafPosterior:
+    """Alpha weights and mll from existing factors (the shared-Cholesky
+    fit derives factors instead of recomputing them)."""
+    yc = centered_y(batch)
+    alpha = chol.cho_solve_lower(Lf, yc)
+    return LeafPosterior(Lf, alpha, leaf_mll(Lf, yc, alpha, batch))
+
+
+def factorize(layout: hyperlib.HyperLayout, theta, batch: LeafBatch) -> LeafPosterior:
+    """Batched ``update_cholesky!`` + mll over all leaves with
+    ``torch.linalg`` (≙ ``gaussianprocess.jl:87-108,163``)."""
+    K = leaf_gram(layout, theta, batch)
+    noise = leaf_noise(layout, theta, batch)
+    Kn = chol.masked_gram_noise(K, batch.mask, noise, EPS)
+    return posterior_from_chol(chol.cholesky_nosym(Kn), batch)
+
+
+def leaf_predict(layout: hyperlib.HyperLayout, theta, batch: LeafBatch,
+                 post: LeafPosterior, xt):
+    """Per-leaf predictive mean and diagonal variance (observation noise
+    included) at test points ``xt``, shared ``[T, D]`` or per-leaf ``[L,
+    T, D]``, from the full store's factors and alphas, in the model dtype
+    as the JAX package computes them (≙ ``prediction``,
+    ``gaussianprocess.jl:110-137``). The models serve the full store
+    through ``fit.cached_leaf_predict`` instead, whose solve runs in
+    float64."""
+    Knt = leaf_gram(layout, theta, batch, xt)  # [L, Nmax, T]
+    Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
+    mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", Knt, post.alpha)
+    V = chol.solve_lower(post.chol, Knt)
+    ktt = leaf_gram_diag(layout, theta, batch, xt)
+    noise = leaf_noise(layout, theta, batch)
+    return mu, ktt - torch.sum(V * V, dim=-2) + noise[:, None]

@@ -1,14 +1,20 @@
 """User-facing models and builders (counterpart of
-``deepstructuredmixtures_tpu/models.py``, without the monolithic store,
-training and the mesh path).
+``deepstructuredmixtures_tpu/models.py``, without training and the mesh
+path).
 
-A model holds its host tree, raw data, compiled plan, the size-bucketed
-leaf batches on its device, the flat tied hyper vector, the flat sum-edge
-log-weights and what the last fit kept:
+A model holds its host tree, raw data, compiled plan (with the leaf-overlap
+matrix ``D`` unless built with ``overlap=False``), the shared-Cholesky
+schedule, the size-bucketed leaf batches on its device (and, built on first
+use, the monolithic ``[L, nmax]`` batch), the flat tied hyper vector, the
+flat sum-edge log-weights and what the last fit kept:
 
 * the leaf mlls (every store);
-* the alpha cache, ``alpha = K^{-1} y`` per bucket (``cache_alpha=True``,
-  the default, and the hybrid store), for the exact mean-only path;
+* the full store's monolithic posterior (``posterior``: factors, alphas,
+  mlls of every leaf at the global ``nmax``), which ``fit`` picks by
+  default when the factors fit in 2 GiB;
+* the alpha cache, ``alpha = K^{-1} y`` per bucket (the light store with
+  ``cache_alpha=True``, and the hybrid store), for the exact mean-only
+  path;
 * the hybrid store's per-bucket factors, ``(Lf, alpha)`` for the buckets
   the greedy budget chose and ``None`` for the rest.
 
@@ -17,6 +23,7 @@ splits per split node.
 """
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
@@ -28,21 +35,22 @@ from . import infer as inferlib
 from .config import EPS, DSMGPConfig, as_2d, default_dtype
 from .hyper import initial_vector, make_layout, noise_from, unpack
 from .kernels import IsoSE, gram_diag, normalize_kernels
-from .plan import _round_up, bucket_batches, bucketize, compile_tree
-from .tree import build_tree, num_mixtures
+from .plan import (_round_up, bucket_batches, bucketize, build_schedule,
+                   compile_tree)
+from .tree import build_tree, num_mixtures, stats
 
 __all__ = ["DSMGP", "PoE", "GPoE", "RBCM", "build_dsmgp", "build_poe",
            "build_bcm"]
 
 #: options of the JAX package that later work brings, with the ROADMAP item
 TODO = {
-    "overlap": ("build_dsmgp(overlap=True) is not ported yet: ROADMAP Queue 1 "
-                "item 1 (overlap analysis and shared-Cholesky schedule)"),
-    "method": "fit(method='shared') is not ported yet: ROADMAP Queue 1 item 1",
-    "store": ("fit(store='full') is not ported yet: ROADMAP Queue 1 item 4 "
-              "(fit_batched and the monolithic posterior)"),
     "mesh": "fit(mesh=...) is not ported yet: ROADMAP Queue 1 item 11",
 }
+
+#: ``fit(store='auto')`` keeps the monolithic factors up to this many bytes
+FULL_STORE_BYTES = 2 << 30
+
+_log = logging.getLogger(__name__)
 
 
 def _sync(device):
@@ -53,11 +61,13 @@ def _sync(device):
 class BaseModel:
     """Shared state/behaviour of the tree-of-experts models."""
 
-    def __init__(self, root, plan, layout, theta, dtype, device, X, y):
+    def __init__(self, root, plan, layout, theta, dtype, device, X, y,
+                 schedule=None):
         self.root = root  # host-side tree (checkpoints, introspection)
         self.X = X  # raw training inputs (≙ getx, common.jl:315-317)
         self.y = y  # raw training targets (≙ gety, common.jl:319-321)
         self.plan = plan
+        self.schedule = schedule  # plan.SharedSchedule, or None
         self.layout = layout
         self.dtype = dtype
         self.device = torch.device(device)
@@ -65,12 +75,30 @@ class BaseModel:
         self.logweights = torch.as_tensor(plan.init_logweights, dtype=dtype,
                                           device=self.device)
         self._leaf_mll = None  # leaf mlls [L] of the last fit
+        self.posterior = None  # the full store's LeafPosterior
         self._alpha_cache = None  # per-bucket alpha weights
         self._bucket_factors = None  # per-bucket (Lf, alpha) or None
+        self._batch = None  # the monolithic batch, built on first use
         self.last_fit_diagnostics = {}
         self.bucket_spec = bucketize(plan)
         self.bucket_batches = bucket_batches(plan, self.bucket_spec, X, y,
                                              dtype, self.device)
+
+    @property
+    def batch(self):
+        """The monolithic ``[L, nmax]`` leaf batch on the model's device,
+        built on first use: only the whole-model fits and the full store
+        read it, and at scale it is mostly padding."""
+        if self._batch is None:
+            self._batch = self.plan.leaf_batch(self.X, self.y, self.dtype,
+                                               self.device)
+        return self._batch
+
+    @property
+    def D(self):
+        """The leaf-overlap matrix (≙ ``model.D``): dense, scipy CSR or
+        ``plan.MixtureOverlap``; None when built with ``overlap=False``."""
+        return self.plan.overlap
 
     @property
     def num_leaves(self) -> int:
@@ -79,7 +107,17 @@ class BaseModel:
     def num_mixtures(self) -> int:
         return num_mixtures(self.root)
 
+    def stats(self) -> dict:
+        """Tree statistics (≙ ``stats``, ``common.jl:365-395``)."""
+        return stats(self.root)
+
     # -- fitting ------------------------------------------------------------
+    def _factor_bytes(self) -> int:
+        """Footprint of the full store's monolithic factors ``[L, nmax,
+        nmax]``."""
+        n = self.plan.nmax
+        return self.num_leaves * n * n * self.dtype.itemsize
+
     def _bucket_factor_bytes(self) -> int:
         """The bucketed factor footprint ``Σ_b count_b · nmax_b²`` in bytes:
         what the hybrid store costs with every bucket cached."""
@@ -138,36 +176,69 @@ class BaseModel:
                                 if c),
         }
 
-    def fit(self, method: str = "auto", store: str = "auto", chunk=None,
-            mesh=None, cache_alpha: bool = True,
+    def fit(self, method: str = "auto", safe: bool = True,
+            store: str = "auto", chunk=None, mesh=None,
+            cache_alpha: bool = True,
             factor_budget: Optional[int] = None) -> float:
         """Refit all leaf posteriors; returns wall-clock seconds like the
         reference ``fit!`` (``fit.jl:88,121``), the device synchronized.
 
-        ``store='light'`` (which ``'auto'`` resolves to: the monolithic
-        ``'full'`` store is not ported) keeps the leaf mlls and, with
-        ``cache_alpha``, the per-leaf alpha weights (Σ n_l floats) that
-        ``predict(xt, return_var=False)`` serves the exact mean from.
-        ``store='hybrid'`` also keeps the factors of the largest buckets
-        that fit ``factor_budget`` bytes (default: all of them), so that a
-        request runs triangular solves instead of refactoring them.
-        ``chunk`` bounds the leaves factored at once."""
-        if method not in ("auto", "batched"):
-            raise NotImplementedError(TODO["method"])
+        ``method``: ``'batched'`` factors every leaf afresh (≙
+        ``fit_naive!``); ``'shared'`` runs the factor-reuse schedule (copy,
+        Givens delete, delete-then-continue; ≙ ``fit!``), with ``safe``
+        PSD fallbacks counted in ``last_fit_diagnostics``; ``'auto'`` is
+        batched, as in the JAX package.
+
+        ``store``: ``'full'`` keeps the monolithic ``[L, nmax, nmax]``
+        factors (``posterior``) for repeated prediction; ``'light'`` keeps
+        the leaf mlls and, with ``cache_alpha``, the per-leaf alpha
+        weights that ``predict(xt, return_var=False)`` serves the exact
+        mean from (prediction otherwise refactors chunk by chunk);
+        ``'hybrid'`` also keeps the factors of the largest buckets that fit
+        ``factor_budget`` bytes (default: all of them); ``'auto'`` is
+        ``'full'`` when its factors fit in 2 GiB, else ``'light'``. The
+        shared schedule needs the full store: on the light store it falls
+        back to the batched fit with a warning, the hybrid store refuses
+        it. ``chunk`` bounds the leaves factored at once."""
         if mesh is not None:
             raise NotImplementedError(TODO["mesh"])
-        if store == "full":
-            raise NotImplementedError(TODO["store"])
-        if store not in ("auto", "light", "hybrid"):
+        if method not in ("auto", "batched", "shared"):
+            raise ValueError(f"unknown method {method!r}")
+        if store not in ("auto", "full", "light", "hybrid"):
             raise ValueError(f"unknown store {store!r}")
+        if store == "hybrid" and method == "shared":
+            raise ValueError(
+                "fit(store='hybrid') runs the bucketed fit; method='shared' "
+                "needs the monolithic store='full'")
+        if store == "auto":
+            store = ("full" if self._factor_bytes() <= FULL_STORE_BYTES
+                     else "light")
+        if method == "shared" and self.theta.ndim == 2:
+            # every derivation assumes one tied covariance; the reference
+            # refits each leaf under its own hypers (finetuning.jl:74-85)
+            _log.warning(
+                "fit(method='shared') requested with per-leaf (untied) "
+                "hypers; factor reuse is invalid, using method='batched'")
+            method = "batched"
+        if method == "shared" and self.schedule is None:
+            raise ValueError(
+                "fit(method='shared') needs the factor-reuse schedule, but "
+                "this model was built with overlap=False; rebuild with "
+                "overlap=True")
+        if method == "shared" and store == "light":
+            _log.warning(
+                "fit(method='shared') requested with store='light'; the "
+                "light path streams fresh factorizations (the schedule "
+                "needs the full store), using the batched light path")
         # drop what the last fit kept before this one allocates its own
         self._leaf_mll = self._alpha_cache = self._bucket_factors = None
+        self.posterior = None
         t0 = time.perf_counter()
         if store == "hybrid":
             if factor_budget is None:
                 factor_budget = self._bucket_factor_bytes()
             self._fit_hybrid(factor_budget, chunk=chunk)
-        else:
+        elif store == "light":
             args = (self.layout, self.theta, self.bucket_batches,
                     self.bucket_spec.leaf_ids, self.num_leaves)
             if cache_alpha:
@@ -175,9 +246,36 @@ class BaseModel:
                     *args, chunk=chunk)
             else:
                 self._leaf_mll = fitlib.bucketed_leaf_mlls(*args, chunk=chunk)
-            self.last_fit_diagnostics = {}
+            self.last_fit_diagnostics = {"delete_fallbacks": 0,
+                                         "continue_fallbacks": 0}
+        else:
+            post, (dfb, cfb) = fitlib.fit(
+                self.layout, self.theta, self.batch, schedule=self.schedule,
+                method=method, chunk=chunk, safe=safe, with_diagnostics=True)
+            self.posterior = post
+            self._leaf_mll = post.mll
+            self.last_fit_diagnostics = {"delete_fallbacks": dfb,
+                                         "continue_fallbacks": cfb}
+            if dfb or cfb:
+                # ≙ the reference's @warn + refactorization of failed
+                # derived factors (fit.jl:197-201, 280-290)
+                _log.warning(
+                    "shared-Cholesky fit: %d delete / %d continue derived "
+                    "factors failed the PSD guard and were refactored",
+                    dfb, cfb)
         _sync(self.device)
         return time.perf_counter() - t0
+
+    def fit_naive(self) -> float:
+        """≙ ``fit_naive!`` (``fit.jl:294-304``)."""
+        return self.fit(method="batched")
+
+    def rebuild_schedule(self, tau: float = 0.05):
+        """Recompile the shared-Cholesky schedule with a new τ stability
+        threshold (≙ the reference's per-call ``fit!(model; τ)``,
+        ``fit.jl:67,174,256``; the schedule is static here, so a τ change
+        is an explicit host-side rebuild)."""
+        self.schedule = build_schedule(self.plan, tau=tau)
 
     def leaf_mlls(self) -> torch.Tensor:
         """Leaf marginal log-likelihoods ``[L]`` (fits first if needed)."""
@@ -197,6 +295,17 @@ class BaseModel:
         self.logweights, z = inferlib.update_weights(self.plan, self.leaf_mlls())
         return float(z)
 
+    def infer(self) -> float:
+        """≙ ``infer!`` (``common.jl:336-355``): the posterior update of
+        the leaf-level kernel-mixture sums only; returns root log
+        evidence."""
+        self.logweights, z = inferlib.infer_weights(self.plan, self.leaf_mlls())
+        return float(z)
+
+    def reset_weights(self):
+        """≙ ``reset_weights!`` (``common.jl:357-363``)."""
+        self.logweights = inferlib.reset_weights(self.plan, self.device)
+
     # -- parameters -----------------------------------------------------------
     def get_params(self) -> np.ndarray:
         """Flat tied hyper vector ``[logl..., logsigma, lognoise]`` per kernel."""
@@ -208,6 +317,7 @@ class BaseModel:
         self.theta = torch.as_tensor(np.array(theta), dtype=self.dtype,
                                      device=self.device)
         self._leaf_mll = self._alpha_cache = self._bucket_factors = None
+        self.posterior = None
 
     # -- prediction helpers -----------------------------------------------
     def _as_test(self, xt):
@@ -216,9 +326,12 @@ class BaseModel:
 
     def _leaf_predict_all(self, xt):
         """Per-leaf moments at shared test points ``(mu, var) [L, T]``:
-        from the hybrid store where the last fit kept factors, else
-        streamed."""
+        from the full or the hybrid store where the last fit kept factors,
+        else streamed."""
         self.leaf_mlls()
+        if self.posterior is not None:
+            return fitlib.cached_leaf_predict(self.layout, self.theta,
+                                              self.batch, self.posterior.chol, xt)
         args = (self.layout, self.theta, self.bucket_batches,
                 self.bucket_spec.leaf_ids, self.num_leaves)
         if self._bucket_factors is not None:
@@ -249,12 +362,15 @@ class DSMGP(BaseModel):
         ``common.jl:294-304``).
 
         Test points are routed on the host to their active leaves. With
-        ``return_var=False`` and an alpha cache (``fit(cache_alpha=True)``,
-        the default, or the hybrid store) the mean alone comes from one
-        O(n·t) cross-gram pass per leaf. Otherwise the buckets of the hybrid
-        store predict from their cached factors and every other bucket
-        refactors its leaves chunk by chunk; the moments are matched in log
-        space. ``return_var=False`` returns the mean alone."""
+        ``return_var=False`` and an alpha cache (the light store with
+        ``cache_alpha=True``, or the hybrid store) the mean alone comes from
+        one O(n·t) cross-gram pass per leaf. Otherwise the full store
+        predicts from its monolithic factors, the buckets of the hybrid
+        store from their cached factors, and every other bucket refactors
+        its leaves chunk by chunk; the moments are matched in log space.
+        The cached solves run in float64 against the float32 factors
+        (``fit.cached_leaf_predict``). ``return_var=False`` returns the
+        mean alone."""
         if refine_steps:
             raise NotImplementedError(fitlib.REFINE_TODO)
         xt_np = as_2d(np.asarray(xt))
@@ -271,7 +387,11 @@ class DSMGP(BaseModel):
             mean, _ = _routed_moment_match(self.plan, mu, torch.ones_like(mu),
                                            self.logweights, ti, tm, T)
             return mean
-        if self._bucket_factors is not None:
+        if self.posterior is not None:
+            mu, var = fitlib.cached_leaf_predict(
+                self.layout, self.theta, self.batch, self.posterior.chol, xt_d,
+                ti)
+        elif self._bucket_factors is not None:
             mu, var = fitlib.bucketed_hybrid_predict(
                 *args, self._bucket_factors, xt_d, ti)
         else:
@@ -352,14 +472,35 @@ def _routed_moment_match(plan, mu, var, logweights, tidx, tmask, T):
     return mean, v
 
 
-def _build(cls, x, y, config: DSMGPConfig, device, seed, dtype, do_fit):
+def _resolve_pad_multiple(pad_multiple, dtype, kernels, device) -> int:
+    """Default leaf padding of the plan's global ``nmax``: 128 on CUDA in
+    float32 with a single IsoSE kernel, so that the monolithic batch is in
+    the fused kernel's domain (``ops/fused_chol.supported``) up to nmax
+    1024; else 8. The size buckets do not read it."""
+    if pad_multiple is not None:
+        return pad_multiple
+    kinds = tuple(k.kind for k in normalize_kernels(kernels))
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and kinds == ("iso_se",)):
+        return 128
+    return 8
+
+
+def _build(cls, x, y, config: DSMGPConfig, device, seed, dtype, do_fit, tau,
+           pad_multiple, overlap, overlap_format):
     x = as_2d(x)
     y = np.asarray(y, dtype=np.float64).reshape(-1)
+    dtype = dtype or default_dtype(device)
     root = build_tree(x, y, config, np.random.default_rng(seed))
+    plan = compile_tree(
+        root, x, overlap=overlap, overlap_format=overlap_format,
+        pad_multiple=_resolve_pad_multiple(pad_multiple, dtype,
+                                           config.kernels, device))
     kernels = normalize_kernels(config.kernels)
-    model = cls(root, compile_tree(root, x), make_layout(kernels),
-                initial_vector(kernels, config.observation_noise),
-                dtype or default_dtype(device), device, x, y)
+    model = cls(root, plan, make_layout(kernels),
+                initial_vector(kernels, config.observation_noise), dtype,
+                device, x, y,
+                schedule=build_schedule(plan, tau=tau) if overlap else None)
     if do_fit:
         model.fit()  # initial posterior fit (≙ treeStructure.jl:434)
     return model
@@ -379,45 +520,59 @@ def build_dsmgp(
     mean_fun=None,
     log_noise: float = 1.0,
     sum_root: bool = True,
+    tau: float = 0.05,
     seed=None,
     dtype=None,
     do_fit: bool = True,
-    overlap: bool = False,
+    pad_multiple: Optional[int] = None,
+    overlap: bool = True,
+    overlap_format: str = "auto",
 ) -> DSMGP:
     """Build a DSMGP on ``device`` (≙ ``buildDSMGP``,
     ``treeStructure.jl:328-339``; the JAX package's ``build_dsmgp``).
 
     ``V``: children per sum node; ``K``: splits per split node; ``eps``:
     split-position noise; ``M``: min observations per expert; ``depth``:
-    max sum depth. ``dtype`` defaults to float64 on the CPU and float32 on
-    CUDA. ``overlap=True`` (the leaf-overlap analysis) is not ported yet.
+    max sum depth; ``tau``: the shared schedule's deletion threshold.
+    ``dtype`` defaults to float64 on the CPU and float32 on CUDA;
+    ``pad_multiple`` to :func:`_resolve_pad_multiple`. ``overlap=False``
+    skips the leaf-overlap analysis and the schedule (then
+    ``fit(method='shared')`` and ``rebuild_schedule`` raise);
+    ``overlap_format``: ``'dense'``, ``'sparse'`` (scipy CSR, or
+    ``plan.MixtureOverlap`` on kernel mixtures) or ``'auto'`` (sparse
+    above ``plan.DENSE_OVERLAP_MAX`` leaves).
     """
-    if overlap:
-        raise NotImplementedError(TODO["overlap"])
     kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
     config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, V, depth, eps, sum_root)
-    return _build(DSMGP, x, y, config, device, seed, dtype, do_fit)
+    return _build(DSMGP, x, y, config, device, seed, dtype, do_fit, tau,
+                  pad_multiple, overlap, overlap_format)
 
 
 def build_poe(x, y, K: int = 4, *, device, generalized: bool = False,
               eps: float = 0.0, M: int = 30, depth: int = 2, kernel=None,
-              mean_fun=None, log_noise: float = 1.0, seed=None, dtype=None,
-              do_fit: bool = True):
+              mean_fun=None, log_noise: float = 1.0, tau: float = 0.05,
+              seed=None, dtype=None, do_fit: bool = True,
+              pad_multiple: Optional[int] = None, overlap: bool = True,
+              overlap_format: str = "auto"):
     """Build a (generalized) product of experts on ``device``
     (≙ ``buildPoE``, ``treeStructure.jl:360-371``): a split-only tree with
-    ``K`` splits per node."""
+    ``K`` splits per node. Options as :func:`build_dsmgp`."""
     kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
     config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, 1, depth, eps, False)
     return _build(GPoE if generalized else PoE, x, y, config, device, seed,
-                  dtype, do_fit)
+                  dtype, do_fit, tau, pad_multiple, overlap, overlap_format)
 
 
 def build_bcm(x, y, K: int = 4, *, device, eps: float = 0.0, M: int = 30,
               depth: int = 2, kernel=None, mean_fun=None,
-              log_noise: float = 1.0, seed=None, dtype=None,
-              do_fit: bool = True) -> RBCM:
+              log_noise: float = 1.0, tau: float = 0.05, seed=None,
+              dtype=None, do_fit: bool = True,
+              pad_multiple: Optional[int] = None, overlap: bool = True,
+              overlap_format: str = "auto") -> RBCM:
     """Build a robust Bayesian committee machine on ``device``
-    (≙ ``buildBCM``, ``treeStructure.jl:392-403``)."""
+    (≙ ``buildBCM``, ``treeStructure.jl:392-403``). Options as
+    :func:`build_dsmgp`."""
     kernel = kernel if kernel is not None else IsoSE(1.0, 1.0)
     config = DSMGPConfig(mean_fun, kernel, log_noise, M, K, 1, depth, eps, False)
-    return _build(RBCM, x, y, config, device, seed, dtype, do_fit)
+    return _build(RBCM, x, y, config, device, seed, dtype, do_fit, tau,
+                  pad_multiple, overlap, overlap_format)

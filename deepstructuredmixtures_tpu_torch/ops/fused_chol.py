@@ -25,7 +25,7 @@ import torch
 from ..config import EPS
 from ..kernels import gram
 from . import build
-from .cholesky import masked_gram_noise
+from .cholesky import cholesky_nosym, masked_gram_noise
 
 BLOCK = 128
 MAX_N = 1024
@@ -130,13 +130,14 @@ def supported(nmax: int, dtype, kinds, device) -> bool:
 
 def fused_gram_cholesky_reference(x, n, logl, logsigma, noise, eps: float = EPS):
     """Plain PyTorch version: the port's IsoSE ``gram`` +
-    ``masked_gram_noise`` + ``torch.linalg.cholesky`` + ``tril``, in the
-    dtype of ``x``."""
+    ``masked_gram_noise`` + ``cholesky_nosym`` + ``tril``, in the dtype of
+    ``x``. As with the kernel, a leaf whose gram is not positive definite
+    comes back non-finite without raising."""
     N = x.shape[1]
     K = gram("iso_se", logl[:, None], logsigma, x, x)
     mask = torch.arange(N, device=x.device)[None, :] < n[:, None]
     Kn = masked_gram_noise(K, mask, noise, eps)
-    return torch.tril(torch.linalg.cholesky(Kn))
+    return torch.tril(cholesky_nosym(Kn))
 
 
 def fused_gram_cholesky(x, n, logl, logsigma, noise, eps: float = EPS):

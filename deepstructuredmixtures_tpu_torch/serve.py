@@ -46,9 +46,9 @@ class Predictor:
     factor_budget=...)``) when the budget admits any bucket or the model
     was never fitted: the largest buckets' factors are kept, the rest
     stream. Other holders of the same model object see that refit.
-    ``'hybrid'`` refits in any case; ``'light'`` leaves the model as it is
-    (requests then refactor what it does not cache). ``'full'`` is not
-    ported (ROADMAP Queue 1 item 4).
+    ``'hybrid'`` refits in any case; ``'full'`` refits with the monolithic
+    store unless the model already holds it; ``'light'`` leaves the model
+    as it is (requests then refactor what it does not cache).
 
     ``chunk_points``: requests above this many rows run in chunks of it.
     """
@@ -62,13 +62,12 @@ class Predictor:
         self.chunk_points = int(chunk_points)
         self.dim = int(model.plan.dim)
         self._lock = threading.Lock()  # one request on the device at a time
-        if store == "full":
-            from .models import TODO
-
-            raise NotImplementedError(TODO["store"])
-        if store not in ("auto", "hybrid", "light"):
+        if store not in ("auto", "full", "hybrid", "light"):
             raise ValueError(f"unknown store {store!r}")
-        if store == "hybrid" or (store == "auto" and (
+        if store == "full":
+            if model.posterior is None:
+                model.fit(store="full")
+        elif store == "hybrid" or (store == "auto" and (
                 any(model._hybrid_cached_flags(factor_budget))
                 or model._leaf_mll is None)):
             model.fit(store="hybrid", factor_budget=factor_budget)

@@ -1,11 +1,12 @@
 """ctypes loader for the native host library (``native/libdsmhost.so``).
 
 The subset of ``deepstructuredmixtures_tpu/utils/native.py`` that the
-fit/predict path uses: half-open box routing of test points (≙
-``getchild``, ``common.jl:101-122``), routed-index packing and the ragged
-to padded leaf packer. Host C++, shared with the JAX package; each
-function has a NumPy fallback for when the library is missing or does not
-load.
+port uses: half-open box routing of test points (≙ ``getchild``,
+``common.jl:101-122``), routed-index packing, the ragged to padded leaf
+packer, and the two kernels of the sparse leaf-overlap analysis
+(intersecting leaf boxes, then the observation counts of those pairs).
+Host C++, shared with the JAX package; each function has a NumPy fallback
+for when the library is missing or does not load.
 """
 from __future__ import annotations
 
@@ -50,6 +51,34 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint8),
         ]
         lib.dsm_pack_routes.restype = None
+        try:  # the sparse-overlap kernels (absent from a stale library)
+            lib.dsm_box_pairs_count.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ]
+            lib.dsm_box_pairs_count.restype = ctypes.c_int64
+            lib.dsm_box_pairs_fill.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.dsm_box_pairs_fill.restype = None
+            lib.dsm_pair_intersect.argtypes = [
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+            ]
+            lib.dsm_pair_intersect.restype = None
+            _PACK_SYMS.update(("dsm_box_pairs", "dsm_pair_intersect"))
+        except AttributeError:
+            pass
         for name, valt in (("dsm_pack_leaves_f32", ctypes.c_float),
                            ("dsm_pack_leaves_f64", ctypes.c_double)):
             try:
@@ -75,6 +104,86 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def box_pairs(lb: np.ndarray, ub: np.ndarray):
+    """Canonical pairs ``(i < j)`` of leaves whose half-open bounding boxes
+    intersect (``lb_i < ub_j`` and ``lb_j < ub_i`` on every dim): the
+    necessary condition for their observation sets to intersect, and so
+    the sparsity prefilter of the overlap analysis (≙ ``getOverlap``,
+    ``fit.jl:12-39``, without its O(L²·N) bitmask pass). Returns ``(pi,
+    pj)`` int32 arrays."""
+    lb = np.ascontiguousarray(lb, dtype=np.float64)
+    ub = np.ascontiguousarray(ub, dtype=np.float64)
+    L, D = lb.shape
+    lib = get_lib()
+    if lib is not None and "dsm_box_pairs" in _PACK_SYMS:
+        order = np.ascontiguousarray(np.argsort(lb[:, 0], kind="stable"),
+                                     dtype=np.int64)
+        n = int(lib.dsm_box_pairs_count(
+            _ptr(lb, ctypes.c_double), _ptr(ub, ctypes.c_double), L, D,
+            _ptr(order, ctypes.c_int64)))
+        pi = np.zeros(n, dtype=np.int32)
+        pj = np.zeros(n, dtype=np.int32)
+        lib.dsm_box_pairs_fill(
+            _ptr(lb, ctypes.c_double), _ptr(ub, ctypes.c_double), L, D,
+            _ptr(order, ctypes.c_int64), _ptr(pi, ctypes.c_int32),
+            _ptr(pj, ctypes.c_int32))
+        return pi, pj
+    # NumPy fallback: chunked upper-triangular all-pairs test
+    pis, pjs = [], []
+    chunk = max(1, (64 << 20) // max(1, L * D * 8))
+    for s in range(0, L, chunk):
+        e = min(s + chunk, L)
+        ok = np.all((lb[s:e, None, :] < ub[None, :, :])
+                    & (lb[None, :, :] < ub[s:e, None, :]), axis=-1)  # [c, L]
+        ok &= np.arange(L)[None, :] > np.arange(s, e)[:, None]
+        ii, jj = np.nonzero(ok)
+        pis.append((ii + s).astype(np.int32))
+        pjs.append(jj.astype(np.int32))
+    return (np.concatenate(pis) if pis else np.zeros(0, np.int32),
+            np.concatenate(pjs) if pjs else np.zeros(0, np.int32))
+
+
+def pair_intersect(obs_list, pi: np.ndarray, pj: np.ndarray) -> np.ndarray:
+    """``|obs_i ∩ obs_j|`` per candidate pair; ``obs_list`` holds per-leaf
+    ascending index arrays. Contiguous index ranges take an O(1) path."""
+    P = pi.size
+    if P == 0:
+        return np.zeros(0, dtype=np.int64)
+    Lb = len(obs_list)
+    lens = np.fromiter((o.size for o in obs_list), dtype=np.int64, count=Lb)
+    starts = np.zeros(Lb, dtype=np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    first = np.array([int(o[0]) if o.size else 0 for o in obs_list],
+                     dtype=np.int64)
+    last = np.array([int(o[-1]) if o.size else -1 for o in obs_list],
+                    dtype=np.int64)
+    contig = (last - first + 1 == lens) & (lens > 0)
+    lib = get_lib()
+    if lib is not None and "dsm_pair_intersect" in _PACK_SYMS:
+        obs = (np.ascontiguousarray(np.concatenate(obs_list), dtype=np.int64)
+               if Lb else np.zeros(0, dtype=np.int64))
+        pi = np.ascontiguousarray(pi, dtype=np.int32)
+        pj = np.ascontiguousarray(pj, dtype=np.int32)
+        cg = np.ascontiguousarray(contig, dtype=np.uint8)
+        out = np.zeros(P, dtype=np.int64)
+        lib.dsm_pair_intersect(
+            _ptr(obs, ctypes.c_int64), _ptr(starts, ctypes.c_int64),
+            _ptr(lens, ctypes.c_int64), _ptr(cg, ctypes.c_uint8),
+            _ptr(pi, ctypes.c_int32), _ptr(pj, ctypes.c_int32), P,
+            _ptr(out, ctypes.c_int64))
+        return out
+    # NumPy fallback: O(1) for contiguous ranges, intersect1d otherwise
+    out = np.zeros(P, dtype=np.int64)
+    lo = np.maximum(first[pi], first[pj])
+    hi = np.minimum(last[pi], last[pj])
+    both = contig[pi] & contig[pj]
+    out[both] = np.maximum(0, hi[both] - lo[both] + 1)
+    for q in np.nonzero(~both)[0]:
+        a, b = obs_list[int(pi[q])], obs_list[int(pj[q])]
+        out[q] = np.intersect1d(a, b, assume_unique=True).size
+    return out
 
 
 def route_box(xt: np.ndarray, lb: np.ndarray, ub: np.ndarray) -> np.ndarray:

@@ -132,6 +132,24 @@ def test_cuda_kernel_launch_plans(cuda_device, L, N, tied):
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_not_positive_definite(cuda_device):
+    """A leaf whose gram is not positive definite (negative noise: the
+    first pivot is negative) comes back non-finite without raising, as
+    from the plain version; the other leaves match the plain version."""
+    x, n, logl, logsigma, noise = kernel_inputs(3, 256, False, 9)
+    noise[1] = -2.0 * np.exp(2 * logsigma[1])
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (x, n, logl, logsigma, noise)]
+    out = fused_chol.fused_gram_cholesky(*args)
+    torch.cuda.synchronize()
+    plain = fused_chol.fused_gram_cholesky_reference(*args)
+    assert not torch.isfinite(out[1]).all()
+    assert not torch.isfinite(plain[1]).all()
+    for l in (0, 2):
+        assert (out[l] - plain[l]).abs().max().item() < TOL
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_info(cuda_device):
     """The shared memory the launch plan assumes is the compiled kernel's,
     and two of its blocks fit on an SM."""

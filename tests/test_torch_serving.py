@@ -168,8 +168,11 @@ def test_predictor_caches_factors_and_chunks_exactly():
     for bad in (np.full((3, 1), np.nan), np.zeros((3, 2))):
         with pytest.raises(ValueError):
             p.predict(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(m, store="full")
+    Predictor(m, store="full")  # the monolithic store, now ported
+    assert m.posterior is not None and m._bucket_factors is None
+    full_mean, full_var, _ = p.predict(xt)
+    np.testing.assert_allclose(full_mean, mean, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(full_var, var, rtol=0, atol=1e-12)
 
 
 def test_predictor_light_store_mean_only():

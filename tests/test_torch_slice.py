@@ -125,21 +125,13 @@ def test_from_jax_arrays_loads_logweights(runs):
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: m.fit(store="full"),
-    lambda m: m.fit(method="shared"),
     lambda m: m.fit(mesh=object()),
     lambda m: m.predict(np.zeros(3), refine_steps=1),
-], ids=["full", "shared", "mesh", "refine"])
+], ids=["mesh", "refine"])
 def test_later_options_raise(runs, call):
     _, tm, _, _ = runs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(tm)
-
-
-def test_overlap_raises():
-    x, y = _data(200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdsm.build_dsmgp(x, y, device="cpu", overlap=True)
 
 
 def test_port_never_imports_jax():
@@ -153,6 +145,10 @@ def test_port_never_imports_jax():
         "m.update(); m.predict(np.linspace(0, 1, 9))\n"
         "m.fit(store='hybrid'); m.predict(np.linspace(0, 1, 9))\n"
         "assert all(f is not None for f in m._bucket_factors)\n"
+        "m = t.build_dsmgp(x, y, M=20, device='cpu', seed=1, overlap=True)\n"
+        "assert m.posterior is not None and m.schedule is not None\n"
+        "m.fit(store='full'); m.fit(method='shared'); m.update()\n"
+        "m.predict(np.linspace(0, 1, 9))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('deepstructuredmixtures_tpu.')"
         " or k == 'deepstructuredmixtures_tpu']\n"

@@ -528,23 +528,21 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
 
 
 def fit(layout: HyperLayout, theta, batch: LeafBatch, schedule=None,
-        method: str = "auto", chunk: Optional[int] = None, safe: bool = True,
-        with_diagnostics: bool = False, split: Optional[dict] = None):
+        method: str = "auto", chunk: Optional[int] = None, safe: bool = True):
     """Whole-model posterior fit: ``'batched'`` (≙ ``fit_naive!``),
     ``'shared'`` (≙ ``fit!``) or ``'auto'``, which resolves to batched as
     in the JAX package: factor reuse measured slower there on the TPU and
     on the CPU (its ``fit.fit`` docstring); the H100's numbers are in
-    ``PERF.md``. ``with_diagnostics`` also returns the PSD-fallback counts
-    (``(0, 0)`` on the batched path); ``split`` goes to
-    :func:`fit_shared`."""
+    ``PERF.md``. Returns ``(posterior, (delete_fallbacks,
+    continue_fallbacks))``, the PSD-fallback counts ``(0, 0)`` on the
+    batched path."""
     if method == "auto":
         method = "batched"
     if method == "shared":
         if schedule is None:
             raise ValueError("method='shared' requires a schedule")
         return fit_shared(layout, theta, batch, schedule, safe=safe,
-                          with_diagnostics=with_diagnostics, split=split)
+                          with_diagnostics=True)
     if method != "batched":
         raise ValueError(f"unknown method {method!r}")
-    post = fit_batched(layout, theta, batch, chunk=chunk)
-    return (post, (0, 0)) if with_diagnostics else post
+    return fit_batched(layout, theta, batch, chunk=chunk), (0, 0)

@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from . import hyper as hyperlib
-from .config import EPS
 from .kernels import gram, gram_diag
 from .ops import cholesky as chol
 
@@ -143,45 +142,9 @@ def leaf_mll_forward(Lf, z, batch: LeafBatch):
     return -0.5 * (quad + logdet + nn * LOG2PI)
 
 
-def leaf_mll(Lf, yc, alpha, batch: LeafBatch):
-    """``-(y'α + logdet + N log 2π) / 2`` per leaf
-    (≙ ``gaussianprocess.jl:163``)."""
-    quad = torch.sum(yc * alpha, dim=-1)
-    logdet = chol.masked_logdet(Lf, batch.mask)
-    nn = batch.n.to(Lf.dtype)
-    return -0.5 * (quad + logdet + nn * LOG2PI)
-
-
 def posterior_from_chol(Lf, batch: LeafBatch) -> LeafPosterior:
     """Alpha weights and mll from existing factors (the shared-Cholesky
     fit derives factors instead of recomputing them)."""
-    yc = centered_y(batch)
-    alpha = chol.cho_solve_lower(Lf, yc)
-    return LeafPosterior(Lf, alpha, leaf_mll(Lf, yc, alpha, batch))
-
-
-def factorize(layout: hyperlib.HyperLayout, theta, batch: LeafBatch) -> LeafPosterior:
-    """Batched ``update_cholesky!`` + mll over all leaves with
-    ``torch.linalg`` (≙ ``gaussianprocess.jl:87-108,163``)."""
-    K = leaf_gram(layout, theta, batch)
-    noise = leaf_noise(layout, theta, batch)
-    Kn = chol.masked_gram_noise(K, batch.mask, noise, EPS)
-    return posterior_from_chol(chol.cholesky_nosym(Kn), batch)
-
-
-def leaf_predict(layout: hyperlib.HyperLayout, theta, batch: LeafBatch,
-                 post: LeafPosterior, xt):
-    """Per-leaf predictive mean and diagonal variance (observation noise
-    included) at test points ``xt``, shared ``[T, D]`` or per-leaf ``[L,
-    T, D]``, from the full store's factors and alphas, in the model dtype
-    as the JAX package computes them (≙ ``prediction``,
-    ``gaussianprocess.jl:110-137``). The models serve the full store
-    through ``fit.cached_leaf_predict`` instead, whose solve runs in
-    float64."""
-    Knt = leaf_gram(layout, theta, batch, xt)  # [L, Nmax, T]
-    Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
-    mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", Knt, post.alpha)
-    V = chol.solve_lower(post.chol, Knt)
-    ktt = leaf_gram_diag(layout, theta, batch, xt)
-    noise = leaf_noise(layout, theta, batch)
-    return mu, ktt - torch.sum(V * V, dim=-2) + noise[:, None]
+    z = chol.solve_lower(Lf, centered_y(batch)[..., None])
+    alpha = torch.linalg.solve_triangular(Lf.mT, z, upper=True)[..., 0]
+    return LeafPosterior(Lf, alpha, leaf_mll_forward(Lf, z[..., 0], batch))

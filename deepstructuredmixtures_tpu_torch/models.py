@@ -251,7 +251,7 @@ class BaseModel:
         else:
             post, (dfb, cfb) = fitlib.fit(
                 self.layout, self.theta, self.batch, schedule=self.schedule,
-                method=method, chunk=chunk, safe=safe, with_diagnostics=True)
+                method=method, chunk=chunk, safe=safe)
             self.posterior = post
             self._leaf_mll = post.mll
             self.last_fit_diagnostics = {"delete_fallbacks": dfb,

@@ -57,24 +57,11 @@ def cholesky_nosym(K):
     and ``factor_is_valid`` all see the NaN. Masking the diagonal alone
     touches ``n`` elements per matrix instead of ``n²``: a ``where`` over
     every factor made the streamed N=100k headline 1.4% slower on an H100
-    (``chip_nosym_ab.py``)."""
+    (``chip_nosym_ab.py`` of commit bc8fd97)."""
     L, info = torch.linalg.cholesky_ex(K)
     d = torch.diagonal(L, dim1=-2, dim2=-1)
     d.copy_(torch.where((info > 0)[..., None], torch.nan, d))
     return L
-
-
-def masked_cholesky(K, mask):
-    """Lower Cholesky of an identity-padded covariance batch."""
-    return cholesky_nosym(pad_identity(K, mask))
-
-
-def cho_solve_lower(L, y):
-    """Solve ``(L L^T) x = y`` given lower ``L`` and ``y [..., N]``: the
-    alpha weights (Rasmussen & Williams Alg. 2.1; reference
-    ``gaussianprocess.jl:105``)."""
-    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
 
 
 def solve_lower(L, B):

@@ -44,8 +44,8 @@ class Predictor:
     ``store``: with the default ``'auto'``, construction refits the passed
     model with the hybrid store (``model.fit(store='hybrid',
     factor_budget=...)``) when the budget admits any bucket or the model
-    was never fitted: the largest buckets' factors are kept, the rest
-    stream. Other holders of the same model object see that refit.
+    was never fitted, unless it already holds the full store: the largest
+    buckets' factors are kept, the rest stream. Other holders of the same model object see that refit.
     ``'hybrid'`` refits in any case; ``'full'`` refits with the monolithic
     store unless the model already holds it; ``'light'`` leaves the model
     as it is (requests then refactor what it does not cache).
@@ -67,9 +67,10 @@ class Predictor:
         if store == "full":
             if model.posterior is None:
                 model.fit(store="full")
-        elif store == "hybrid" or (store == "auto" and (
-                any(model._hybrid_cached_flags(factor_budget))
-                or model._leaf_mll is None)):
+        elif store == "hybrid" or (
+                store == "auto" and model.posterior is None
+                and (any(model._hybrid_cached_flags(factor_budget))
+                     or model._leaf_mll is None)):
             model.fit(store="hybrid", factor_budget=factor_budget)
 
     @property

@@ -106,6 +106,7 @@ def test_poe_family_and_checkpoint_match_jax(kind, tmp_path):
                             device="cpu", **kw)
     assert type(tm).__name__ == type(jm).__name__
     ref = jm.predict(XT)
+    tm.fit(store="light")
     for p, j in zip(tm.predict(XT), ref):  # streamed
         _close(p, j)
     tm.fit(store="hybrid")
@@ -115,7 +116,8 @@ def test_poe_family_and_checkpoint_match_jax(kind, tmp_path):
     jax_checkpoint.save(jm, path)
     loaded = checkpoint.load(path, device="cpu")
     assert type(loaded) is type(tm)
-    for p, j in zip(loaded.predict(XT), ref):
+    loaded.fit(store="light")
+    for p, j in zip(loaded.predict(XT), ref):  # streamed
         _close(p, j)
 
 
@@ -157,6 +159,7 @@ def _direct(m, x):
 
 def test_predictor_caches_factors_and_chunks_exactly():
     m = _model()
+    m.fit(store="light")  # the build fitted the full store, which 'auto' keeps
     p = Predictor(m, chunk_points=16)
     assert all(f is not None for f in m._bucket_factors)
     xt = np.linspace(0, 1, 53).reshape(-1, 1)  # 4 chunks: 16+16+16+5
@@ -173,6 +176,25 @@ def test_predictor_caches_factors_and_chunks_exactly():
     full_mean, full_var, _ = p.predict(xt)
     np.testing.assert_allclose(full_mean, mean, rtol=0, atol=1e-12)
     np.testing.assert_allclose(full_var, var, rtol=0, atol=1e-12)
+
+
+def test_predictor_auto_keeps_full_store():
+    """A model that holds the full store keeps its posterior under
+    ``Predictor(store='auto')``, as in the JAX package; a light one is
+    refitted with the hybrid store."""
+    m = _model()
+    post = m.posterior
+    assert post is not None and m._bucket_factors is None
+    xt = np.linspace(0, 1, 40).reshape(-1, 1)
+    mean, var, _ = Predictor(m, chunk_points=16).predict(xt)
+    assert m.posterior is post and m._bucket_factors is None
+    np.testing.assert_allclose(mean, _direct(m, xt)[0], rtol=0, atol=1e-12)
+    m.fit(store="light")
+    Predictor(m)
+    assert m.posterior is None and all(f is not None for f in m._bucket_factors)
+    hmean, hvar, _ = Predictor(m).predict(xt)
+    np.testing.assert_allclose(hmean, mean, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(hvar, var, rtol=0, atol=1e-12)
 
 
 def test_predictor_light_store_mean_only():

@@ -115,6 +115,7 @@ def test_from_jax_arrays_loads_logweights(runs):
     fresh = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                              log_noise=-1.0, seed=0, device="cpu", do_fit=False)
     convert.from_jax_arrays(fresh, np.asarray(jm.theta), np.asarray(jm.logweights))
+    fresh.fit(store="light")
     xt = np.linspace(0.2, 0.3, 5)
     mean_j, var_j = (np.asarray(a) for a in jm.predict(xt))
     mean_t, var_t = (a.numpy() for a in fresh.predict(xt))

@@ -2,21 +2,29 @@
 """The streamed path with and without the blocked Cholesky kernel, on one
 NVIDIA GPU.
 
-    python3 chip_potrf_ab.py
+    python3 chip_potrf_ab.py [--refine-steps K]
 
 Measures what the streamed path would gain and lose with the blocked
-kernel in place of cuSOLVER: ``fit._factor`` is swapped for
-``fit._factor_kept`` inside this script only. It prints the headline
+kernel in place of cuSOLVER: the streamed path's factor (``fit._factor``,
+or ``fit._factor_refined`` under ``--refine-steps``) is set to
+``fit._factor`` (cuSOLVER above nmax 1024) and to ``fit._factor_kept``
+(the blocked kernel) in turns, inside this script only. It prints the headline
 pipeline (fit + update + routed predict at T=2000, min of 3) both ways in
 turns at N=100k and N=20k, the float32 errors against the float64 run both
 ways, and, for single leaves of the N=100k tree, the error of the
 predictive mean with each factor (``cholesky_ex``, the kernel, the float64
 factor rounded to float32) under a float32 and under a float64 solve.
 
+With ``--refine-steps K`` the pipeline refines each leaf's solves K times
+(``refine_steps``): the errors are those of the refined pipeline (its
+evidence and its moments at T=2000) against the float64 run, the times
+those of the refined pipeline, and the single-leaf probe is skipped.
+
 One JSON object per line; needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -101,30 +109,45 @@ def main():
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.ops import build
 
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--refine-steps", type=int, default=0,
+                    help="refinement steps of the streamed pipeline")
+    k = ap.parse_args().refine_steps
     if not torch.cuda.is_available():
         raise SystemExit("chip_potrf_ab.py: no CUDA device")
     build.build(build.KERNELS)
     card = cs.card_line()
     ways = {"cusolver": fitlib._factor, "blocked_kernel": fitlib._factor_kept}
+    slot = "_factor_refined" if k else "_factor"
+    kept = getattr(fitlib, slot)
     for n_train in (100_000, 20_000):
         run64 = _run(n_train, torch.float64)
         runs = {}
         for name, fn in ways.items():
-            fitlib._factor = fn
+            setattr(fitlib, slot, fn)
             cs.reset_launches()
             runs[name] = _run(n_train, torch.float32)
+            if k:
+                mean, var, z = cs.streamed_pipeline(runs[name]["model"], k)()
+                errs = cs.slice_errors(
+                    {"z": float(z), "preds": {cs.T_TEST: (mean, var)}}, run64,
+                    sizes=(cs.T_TEST,))
+            else:
+                errs = cs.slice_errors(runs[name], run64)
             say(compare="streamed_errors", n=n_train, factor=name,
-                fit_s=runs[name]["fit_s"], launches_fused_blocked=cs.launches(),
-                errors_f32_vs_f64=cs.slice_errors(runs[name], run64),
+                refine_steps=k, fit_s=runs[name]["fit_s"],
+                launches_fused_blocked=cs.launches(), errors_f32_vs_f64=errs,
+                within_tolerances=all(errs[key] <= tol
+                                      for key, tol in cs.SLICE_TOL.items()),
                 tolerances=cs.SLICE_TOL, card=card)
         model = runs["cusolver"]["model"]
         for name in ("cusolver", "blocked_kernel", "blocked_kernel", "cusolver"):
-            fitlib._factor = ways[name]
-            times = cs.headline_times(model)[0]
-            say(compare="headline", n=n_train, factor=name, seconds=min(times),
-                runs=times, card=card)
-        fitlib._factor = ways["cusolver"]
-        if n_train == 100_000:
+            setattr(fitlib, slot, ways[name])
+            times = cs.headline_times(model, refine_steps=k)[0]
+            say(compare="headline", n=n_train, factor=name, refine_steps=k,
+                seconds=min(times), runs=times, card=card)
+        setattr(fitlib, slot, kept)
+        if n_train == 100_000 and not k:
             _leaf_probe(run64["model"])
         del run64, runs, model
         torch.cuda.empty_cache()

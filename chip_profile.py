@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time goes in the port's cells, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--n 100000] [--depth D]
+    python3 chip_profile.py [--n 100000] [--depth D] [--refine-steps K]
+                            [--float64]
 
 Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
 IsoSE(0, 0), log noise -1, seed 0, float32) on ``--n`` points, fits it once
@@ -9,10 +10,11 @@ with ``fit(store='hybrid')`` (every bucket cached) to build the kernels,
 then runs under ``torch.profiler`` (CPU + CUDA activities): one more hybrid
 fit, and one cached ``predict`` at T=1 and T=2000.
 
-With ``--depth D``: the same model on a tree of depth D, and the streamed
-pipeline of the benchmark (``bucketed_streamed_predict`` →
-``update_weights`` → ``_routed_moment_match`` at T=2000), run once to warm
-up and once under the profiler.
+With ``--depth D``, ``--refine-steps K`` or ``--float64``: the same model
+(on a tree of depth D, default 2; in float64 with ``--float64``), and the
+streamed pipeline of the benchmark (``bucketed_streamed_predict`` with K
+refinement steps → ``update_weights`` → ``_routed_moment_match`` at
+T=2000), run once to warm up and once under the profiler.
 
 For each profiled call, one JSON line: the wall-clock, the device time
 summed over all kernels, split by what the kernels do (the fused
@@ -41,7 +43,10 @@ BLOCKED = {"diagonal": "diag_inv_kernel", "panel": "panel_kernel",
 #: the other groups of kernels, by a part of their names (lower case),
 #: taken in this order; what matches none is "other"
 GROUPS = {"fused_gram_cholesky": ("fused_gram_cholesky",),
-          "cholesky_cusolver": ("potrf", "chol"),
+          # cuSOLVER's potrf runs large matrices through unpivoted LU
+          # kernels (getrf_wo_pivot) and cuBLAS syrk; nothing else here
+          # calls an LU or a syrk
+          "cholesky_cusolver": ("potrf", "chol", "getrf", "syrk"),
           "triangular_solves": ("trsm", "trsv"),
           "matrix_products": ("gemm", "cutlass", "xmma")}
 
@@ -113,7 +118,13 @@ def main():
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--depth", type=int, default=None,
                     help="profile the streamed pipeline on a tree this deep")
+    ap.add_argument("--refine-steps", type=int, default=0,
+                    help="profile the streamed pipeline with K refinement steps")
+    ap.add_argument("--float64", action="store_true",
+                    help="profile the streamed pipeline of the float64 model")
     args = ap.parse_args()
+    streamed = args.depth is not None or args.refine_steps or args.float64
+    depth = args.depth or 2
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile.py: no CUDA device")
     card = subprocess.run(
@@ -124,12 +135,12 @@ def main():
     y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, args.n)
     model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                              log_noise=-1.0, seed=0, device="cuda",
-                             dtype=torch.float32, do_fit=False,
-                             depth=args.depth or 2)
-    if args.depth is not None:
+                             dtype=torch.float64 if args.float64 else torch.float32,
+                             do_fit=False, depth=depth)
+    if streamed:
         import chip_smoke
 
-        pipeline = chip_smoke.streamed_pipeline(model)
+        pipeline = chip_smoke.streamed_pipeline(model, args.refine_steps)
         pipeline()  # builds the kernels, warms the allocator
         from deepstructuredmixtures_tpu_torch.ops import fused_chol
 
@@ -139,12 +150,14 @@ def main():
             kind = ("fused" if fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
                                                     model.device) else "cusolver")
             work[kind] += b.num_leaves * b.nmax**3 / 3
-        print(json.dumps({"card": card, "n": args.n, "depth": args.depth,
-                          "leaves": model.num_leaves,
+        print(json.dumps({"card": card, "n": args.n, "depth": depth,
+                          "refine_steps": args.refine_steps,
+                          "dtype": str(model.dtype), "leaves": model.num_leaves,
                           "cholesky_tflop_padded": {k: v / 1e12 for k, v in work.items()},
                           "bound_s_padded": {k: v / 67e12 for k, v in work.items()}}),
               flush=True)
-        profile(f"streamed_n{args.n}_depth{args.depth}", pipeline)
+        profile(f"streamed_n{args.n}_depth{depth}_refine{args.refine_steps}"
+                f"_{str(model.dtype).split('.')[-1]}", pipeline)
         return
     model.fit(store="hybrid")  # builds the kernels, warms the allocator
     model.update()

@@ -63,7 +63,19 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    split into phases); the shared fit's root mll within 1e-8 of the
    batched one in float64 and its float32 evidence against float64; a
    full-store predict at T=2000 against a light-store streamed one;
-9. a JSON line of the kernels, the card's name and power limit, and last
+9. refinement (``refine_steps``) against the float64 runs of phases 4-5;
+   the refined path factors with the fused kernel up to nmax 1024 and the
+   blocked one above: at N=20,000 ``predict(refine_steps=1)`` and
+   ``refine_steps=2`` at T=2000 (3 fused and 15 blocked launches each;
+   every error within the float32 bounds, the moments' no larger than the
+   unrefined ones); at N=100,000 the headline pipeline with one step (119
+   blocked launches; min of 2, peak memory, errors) beside the float32
+   headline and the float64 pipeline (min of 3);
+10. the standalone ``GaussianProcess`` at N=8,192 in float32 and float64:
+   fit, predict at T=2000 and ``grad_mll`` times; float32 against float64;
+   the full covariance's diagonal against the marginal variance; the
+   float64 gradient against a central finite difference;
+11. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -126,8 +138,14 @@ FULL_STORE_RUNS = ((4_000, "fused"), (10_000, "blocked"))
 SHARED_MLL_TOL = 1e-8
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the script
+    started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def card_line() -> str:
@@ -538,11 +556,11 @@ def phase_slice(n_train, expect_kernel):
     return run32, run64
 
 
-def streamed_pipeline(model):
+def streamed_pipeline(model, refine_steps=0):
     """The benchmark's streamed pipeline on ``model`` at the T=2000 test
-    points: ``bucketed_streamed_predict`` → ``update_weights`` →
-    ``_routed_moment_match``. Returns a function that runs it once,
-    synchronized, and gives ``(mean, var, root evidence)``."""
+    points: ``bucketed_streamed_predict`` (with ``refine_steps``) →
+    ``update_weights`` → ``_routed_moment_match``. Returns a function that
+    runs it once, synchronized, and gives ``(mean, var, root evidence)``."""
     import torch
 
     from deepstructuredmixtures_tpu_torch import fit as fitlib
@@ -558,7 +576,8 @@ def streamed_pipeline(model):
     def pipeline():
         mu, var, mll = fitlib.bucketed_streamed_predict(
             model.layout, model.theta, model.bucket_batches,
-            model.bucket_spec.leaf_ids, model.num_leaves, xtd, ti)
+            model.bucket_spec.leaf_ids, model.num_leaves, xtd, ti,
+            refine_steps=refine_steps)
         lw, z = inferlib.update_weights(model.plan, mll)
         mean, v = _routed_moment_match(model.plan, mu, var, lw, ti, tm, T_TEST)
         torch.cuda.synchronize()
@@ -567,31 +586,34 @@ def streamed_pipeline(model):
     return pipeline
 
 
-def headline_times(model):
+def headline_times(model, refine_steps=0):
     """Seconds of three warm, synchronized runs of the streamed pipeline
-    (:func:`streamed_pipeline`), and the last run's moments."""
-    pipeline = streamed_pipeline(model)
-    mean, v, _ = pipeline()  # warm
+    (:func:`streamed_pipeline`), and the last run's ``(mean, var,
+    evidence)``."""
+    pipeline = streamed_pipeline(model, refine_steps)
+    out = pipeline()  # warm
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        mean, v, _ = pipeline()
+        out = pipeline()
         times.append(time.perf_counter() - t0)
-    return times, mean, v
+    return times, out
 
 
 def phase_headline(model):
-    """The headline wall-clock (min of 3); neither kernel may launch."""
+    """The headline wall-clock (min of 3); neither kernel may launch.
+    Returns the seconds."""
     import torch
 
     reset_launches()
-    times, mean, v = headline_times(model)
+    times, (mean, v, _) = headline_times(model)
     if any(launches()):
         raise AssertionError(f"the headline launched a kernel: {launches()}")
     if not (torch.isfinite(mean).all() and torch.isfinite(v).all()):
         raise AssertionError("headline pipeline gave non-finite moments")
     say("headline", metric="dsmgp_v3k4_fit_update_predict_n100000_t2000_wallclock",
         seconds=min(times), runs=times, dtype=str(model.dtype), card=card_line())
+    return min(times)
 
 
 def _depth4_model(dtype, overlap=True):
@@ -687,8 +709,8 @@ def phase_depth4():
 
 def _expected_launches(model):
     """``(fused, blocked)`` launches of ``fit(store='hybrid')`` with every
-    bucket cached: one per leaf chunk of each bucket, by the fit's own
-    chunk rule."""
+    bucket cached, and of one refined streamed pass: one per leaf chunk of
+    each bucket, by the fit's own chunk rule."""
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
 
@@ -969,6 +991,187 @@ def phase_full_store(n_train, kernel):
     return path_launches
 
 
+#: the errors that refinement must not raise above the unrefined ones: the
+#: moments. The evidence keeps the float32 factor's log-determinant by
+#: design (``ops/refine.refined_mll``), so its error sits at that floor,
+#: which the unrefined quad term's error can partly cancel: on the CPU at
+#: N=2000 in float32 one step gave 8.19e-7 against 7.97e-7 unrefined
+REFINE_NOT_WORSE = ("mean_abs", "var_rel")
+
+
+def _refined_errors(name, errs, base):
+    """Gate of phase 9: each refined error within ``SLICE_TOL``, and the
+    moments' no larger than the unrefined ones ``base``."""
+    for key, tol in SLICE_TOL.items():
+        if not (errs[key] <= tol
+                and (key not in REFINE_NOT_WORSE or errs[key] <= base[key])):
+            raise AssertionError(f"{name}: refined {key} = {errs[key]}, "
+                                 f"unrefined {base[key]}, bound {tol}")
+
+
+def phase_refine(run20k, run20k64, run100k, run100k64, headline_s):
+    """Mixed-precision refinement (``refine_steps``) against the float64
+    runs of phases 4-5. The refined path factors with the fused kernel up
+    to nmax 1024 and the blocked kernel above (``fit._factor_refined``):
+    each kernel launches once per leaf chunk of its buckets. N=20k:
+    ``predict(xt, refine_steps=k)`` at T=2000 for k = 1, 2 (3 fused and 15
+    blocked launches each) and the refined streamed pipeline's evidence;
+    every refined error within ``SLICE_TOL``, the moments' no larger than
+    the unrefined ones (:data:`REFINE_NOT_WORSE`). N=100k: the headline
+    pipeline with one step (119 blocked launches; min of 2, peak memory,
+    errors) beside the float32 headline and the float64 pipeline (min of
+    3); ``chip_profile.py --refine-steps 1`` and ``--float64`` split their
+    device time. Returns the ``(fused, blocked)`` launches of the two
+    refined predicts and one refined headline run."""
+    import torch
+
+    card = card_line()
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    model = run20k["model"]
+    base = slice_errors(run20k, run20k64, sizes=(T_TEST,))
+    expected = _expected_launches(model)
+    if expected != (3, 15):
+        raise AssertionError(f"N=20k: {expected} launches per refined pass")
+    path_launches = np.zeros(2, dtype=int)
+    steps = {}
+    for k in (1, 2):
+        reset_launches()
+        t0 = time.perf_counter()
+        mean, var = model.predict(xt, refine_steps=k)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        got = launches()
+        if got != expected:
+            raise AssertionError(f"refined predict at N=20k: launches {got}, "
+                                 f"expected {expected}")
+        path_launches += got
+        if mean.dtype != torch.float64 or var.dtype != torch.float64:
+            raise AssertionError("refined moments are not float64")
+        _, _, z = streamed_pipeline(model, k)()
+        errs = slice_errors({"z": float(z), "preds": {T_TEST: (mean, var)}},
+                            run20k64, sizes=(T_TEST,))
+        _refined_errors(f"N=20k, {k} steps", errs, base)
+        steps[str(k)] = dict(errors_f32_vs_f64=errs, predict_s=predict_s,
+                             launches=got)
+    say("refine_n20000", steps=steps, unrefined_errors_f32_vs_f64=base,
+        tolerances=SLICE_TOL, card=card)
+
+    model, model64 = run100k["model"], run100k64["model"]
+    base = slice_errors(run100k, run100k64, sizes=(T_TEST,))
+    expected = _expected_launches(model)
+    pipeline = streamed_pipeline(model, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    pipeline()  # the counted run warms the timed ones
+    got = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if got != expected or got[0]:
+        raise AssertionError(f"the refined headline launched {got}, expected "
+                             f"{expected} (no fused bucket)")
+    path_launches += got
+    times = []
+    for _ in range(2):  # min of 2, not 3: phase 9 is the smoke's longest
+        t0 = time.perf_counter()
+        mean, var, z = pipeline()
+        times.append(time.perf_counter() - t0)
+    errs = slice_errors({"z": float(z), "preds": {T_TEST: (mean, var)}},
+                        run100k64, sizes=(T_TEST,))
+    for key, tol in SLICE_TOL.items():
+        if not (errs[key] <= tol):
+            raise AssertionError(f"refined headline: {key} = {errs[key]} > {tol}")
+    times64, _ = headline_times(model64)
+    say("refine_n100000",
+        metric="dsmgp_v3k4_fit_update_predict_refine1_n100000_t2000_wallclock",
+        seconds=min(times), runs=times, peak_memory_bytes=peak,
+        errors_f32_vs_f64=errs, unrefined_errors_f32_vs_f64=base,
+        tolerances=SLICE_TOL,
+        headline_s={"float32": headline_s, "float32_refine1": min(times),
+                    "float64": min(times64)},
+        launches_fused_blocked=got, float64_runs=times64, card=card)
+    return tuple(int(n) for n in path_launches)
+
+
+#: phase 10's GP: training points, and its float64 gradient's bound against
+#: a central difference of step GP_FD_STEP (relative, per component)
+GP_N, GP_FD_STEP, GP_GRAD_TOL = 8192, 1e-4, 1e-6
+#: the full covariance's diagonal against the marginal variance (relative)
+GP_DIAG_TOL = {"float32": 1e-4, "float64": 1e-10}
+
+
+def _timed(fn):
+    """``fn`` wrapped to return its own synchronized seconds."""
+    import torch
+
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return run
+
+
+def phase_gp():
+    """The standalone ``GaussianProcess`` on the card at N=8192 (the
+    benchmark's 1-D data, IsoSE(0, 0), log noise -1) in float32 and
+    float64: fit, predict at T=2000 and ``grad_mll`` (min of 3 each); the
+    float32 mll, mean and variance against float64 within ``SLICE_TOL``;
+    the full covariance's diagonal against the marginal variance; the
+    float64 gradient against a central finite difference."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(GP_N)
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0),
+                                  log_noise=-1.0, device="cuda", dtype=dtype)
+        fit_s, _ = _min_of_3(_timed(gp.fit))
+        predict_s, _ = _min_of_3(_timed(lambda: gp.predict(xt)))
+        grad_s, _ = _min_of_3(_timed(gp.grad_mll))
+        mean, var = gp.predict(xt)
+        _, Sigma = gp.predict(xt, full_cov=True)
+        diag_rel = float(((Sigma.diagonal() - var).abs() / var.abs()).max())
+        if not (diag_rel <= GP_DIAG_TOL[name]):
+            raise AssertionError(f"GP {name}: full_cov diagonal vs variance "
+                                 f"{diag_rel} > {GP_DIAG_TOL[name]}")
+        if not (torch.isfinite(mean).all() and (var > 0).all()):
+            raise AssertionError(f"GP {name}: non-finite or non-positive moments")
+        out[name] = dict(gp=gp, z=gp.mll(), preds={T_TEST: (mean, var)},
+                         times=dict(fit_s=fit_s, predict_t2000_s=predict_s,
+                                    grad_mll_s=grad_s), diag_rel=diag_rel)
+        del Sigma
+    errs = slice_errors(out["float32"], out["float64"], sizes=(T_TEST,))
+    for key, tol in SLICE_TOL.items():
+        if not (errs[key] <= tol):
+            raise AssertionError(f"GP f32 vs f64 {key} = {errs[key]} > {tol}")
+    gp = out["float64"]["gp"]
+    g = gp.grad_mll().cpu().numpy()
+    theta = gp.theta.cpu().numpy()
+    fd = np.zeros_like(g)
+    for i in range(theta.size):
+        mlls = []
+        for sign in (1.0, -1.0):
+            t = theta.copy()
+            t[i] += sign * GP_FD_STEP
+            gp.set_params(t)
+            mlls.append(gp.mll())
+        fd[i] = (mlls[0] - mlls[1]) / (2 * GP_FD_STEP)
+    grad_rel = float(np.max(np.abs(g - fd) / np.abs(fd)))
+    if not (grad_rel <= GP_GRAD_TOL):
+        raise AssertionError(f"GP grad_mll vs finite difference {grad_rel}")
+    say(f"gp_n{GP_N}", n=GP_N, t=T_TEST,
+        times={k: v["times"] for k, v in out.items()},
+        mll={k: v["z"] for k, v in out.items()}, errors_f32_vs_f64=errs,
+        tolerances=SLICE_TOL, full_cov_diag_rel={k: v["diag_rel"]
+                                                  for k, v in out.items()},
+        grad_mll_f64=g.tolist(), grad_rel_vs_finite_difference=grad_rel,
+        card=card_line())
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -980,18 +1183,21 @@ def main():
     blocked_line = phase_potrf()
     run20k, run20k64 = phase_slice(20_000, expect_kernel=True)
     run100k, run100k64 = phase_slice(100_000, expect_kernel=False)
-    phase_headline(run100k["model"])
+    headline_s = phase_headline(run100k["model"])
     depth4_launches = phase_depth4()
+    refine_fused, refine_blocked = phase_refine(run20k, run20k64, run100k,
+                                                run100k64, headline_s)
     fused_launches = (run20k["fit_launches"] + run20k["predict_launches"]
-                      + depth4_launches)
+                      + depth4_launches + refine_fused)
     phase_hybrid_20k(run20k, run20k64)
     del run20k, run20k64
-    blocked_launches = phase_hybrid_100k(run100k, run100k64)
+    blocked_launches = refine_blocked + phase_hybrid_100k(run100k, run100k64)
     del run100k, run100k64
     for n_train, kernel in FULL_STORE_RUNS:
         fused, blocked = phase_full_store(n_train, kernel)
         fused_launches += fused
         blocked_launches += blocked
+    phase_gp()
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [{

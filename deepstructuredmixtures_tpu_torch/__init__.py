@@ -12,8 +12,13 @@ with its alpha cache; or the hybrid store that keeps the largest buckets'
 factors; ``method='shared'`` derives factors from overlapping leaves by
 copies, Givens row deletion and continued Cholesky) → ``update`` /
 ``infer`` (posterior sum weights) → ``predict`` (routed mixture
-prediction, or the PoE fusions), plus ``checkpoint`` (the JAX package's
-npz format) and ``serve`` (``Predictor``, ``MicroBatcher``, HTTP). The two
+prediction, ``refine_steps=k`` for float64 true-K refinement of the float32
+solves, or the PoE fusions), plus the standalone exact
+``GaussianProcess``, ``checkpoint`` (the JAX package's npz format),
+``serve`` (``Predictor``, ``MicroBatcher``, HTTP) and the host-side
+utilities (``introspect``, ``metrics``, ``datasets``, ``plotting``,
+``utils.profiling``). Training and the multi-device path are not ported
+yet. The two
 factorization kernels, fused gram+Cholesky and blocked Cholesky, are
 hand-written CUDA (``csrc/``), built with ``nvcc`` on first use.
 
@@ -29,33 +34,73 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .config import EPS  # noqa: E402
-from .kernels import ArdLinear, ArdSE, IsoLinear, IsoSE  # noqa: E402
+from .config import EPS, DSMGPConfig  # noqa: E402
+from .kernels import ArdLinear, ArdSE, IsoLinear, IsoSE, KernelSpec  # noqa: E402
 from .means import ConstMean  # noqa: E402
+from .metrics import mae, mse, nlpd, sae, sse  # noqa: E402
+from .datasets import nonstationary  # noqa: E402
 from .models import (  # noqa: E402
     DSMGP,
     GPoE,
+    GaussianProcess,
     PoE,
     RBCM,
     build_bcm,
     build_dsmgp,
     build_poe,
 )
+from .introspect import (  # noqa: E402
+    blockindecies,
+    blockmatrix,
+    get_log_noise,
+    left_gp,
+    observation_counts,
+    rand_init,
+    right_gp,
+)
+from .plotting import kernelid_function  # noqa: E402
+from . import checkpoint  # noqa: E402
+
+
+def prediction(model, xt):
+    """Alias for ``model.predict`` (reference README API:
+    ``m, s = prediction(model, testx)``)."""
+    return model.predict(xt)
+
 
 __all__ = [
+    "DSMGPConfig",
     "EPS",
     "IsoSE",
     "ArdSE",
     "IsoLinear",
     "ArdLinear",
+    "KernelSpec",
     "ConstMean",
+    "mse",
+    "sse",
+    "mae",
+    "sae",
+    "nlpd",
+    "nonstationary",
     "DSMGP",
     "PoE",
     "GPoE",
     "RBCM",
+    "GaussianProcess",
     "build_dsmgp",
     "build_poe",
     "build_bcm",
+    "prediction",
+    "blockmatrix",
+    "blockindecies",
+    "observation_counts",
+    "get_log_noise",
+    "left_gp",
+    "right_gp",
+    "rand_init",
+    "kernelid_function",
+    "checkpoint",
 ]
 
 __version__ = "0.1.0"

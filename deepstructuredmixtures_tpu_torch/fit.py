@@ -35,10 +35,7 @@ from .leafgp import (
     posterior_from_chol,
 )
 from .ops import cholesky as chol
-from .ops import fused_chol, potrf
-
-REFINE_TODO = ("refine_steps > 0 is not ported yet: ROADMAP Queue 1 item 6 "
-               "(refinement)")
+from .ops import fused_chol, potrf, refine
 
 
 def _noisy_gram(layout, theta, batch):
@@ -94,6 +91,15 @@ def _factor_kept(layout, theta, batch: LeafBatch):
     return chol.cholesky_nosym(Kn)
 
 
+#: the factor of the refined streamed path (``refine_steps > 0``): the
+#: blocked kernel above nmax 1024. On an H100 it made the refined N=100k
+#: headline 4.5-4.9% faster than cuSOLVER in three calls, with every float32
+#: error within the bounds after one step (``chip_potrf_ab.py
+#: --refine-steps 1``, ``PERF.md``). The unrefined path keeps
+#: :func:`_factor`: there the float32 solves put the mean past its bound.
+_factor_refined = _factor_kept
+
+
 def _alpha(Lf, z):
     """``alpha = L^{-T} z`` from the forward solve ``z = L^{-1} y``."""
     return torch.linalg.solve_triangular(Lf.mT, z, upper=True)
@@ -139,14 +145,18 @@ def streamed_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, xt,
     ``(mu [L, T or tmax], var, mll [L])``. One forward solve per chunk on
     ``[y | K_nt]`` gives the mll (``y'α = ||z_y||²``), the mean
     ``m + V'z_y`` and the variance ``k_tt - ||V||² + noise``.
+
+    ``refine_steps > 0``: the chunk is factored by :data:`_factor_refined`,
+    its solves are refined jointly against true-K float64 residuals
+    (:func:`ops.refine.refine_joint`) and the moments and mll come back in
+    float64.
     """
-    if refine_steps:
-        raise NotImplementedError(REFINE_TODO)
     chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
                 batch.num_leaves)
+    factor = _factor_refined if refine_steps else _factor
     mus, vars_, mlls = [], [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
-        Lf = _factor(layout, th, b)
+        Lf = factor(layout, th, b)
         xt_leaf = xt if tidx is None else xt[tidx[s:e]]
         Knt = leaf_gram(layout, th, b, xt_leaf)  # [C, Nmax, T]
         Knt = torch.where(b.mask[:, :, None], Knt, 0.0)
@@ -154,11 +164,18 @@ def streamed_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, xt,
         Z = chol.solve_lower(Lf, rhs)
         z = Z[..., 0]
         V = Z[..., 1:]
-        ktt = leaf_gram_diag(layout, th, b, xt_leaf)
-        noise = leaf_noise(layout, th, b)
-        vars_.append(ktt - torch.sum(V * V, dim=-2) + noise[:, None])
-        mlls.append(leaf_mll_forward(Lf, z, b))
-        mus.append(b.mean[:, None] + torch.einsum("lnt,ln->lt", V, z))
+        if refine_steps:
+            mu, var, mll = refine.refine_joint(layout, th, b, Lf, z, V,
+                                               xt_leaf, refine_steps)
+        else:
+            ktt = leaf_gram_diag(layout, th, b, xt_leaf)
+            noise = leaf_noise(layout, th, b)
+            var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
+            mll = leaf_mll_forward(Lf, z, b)
+            mu = b.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
+        mus.append(mu)
+        vars_.append(var)
+        mlls.append(mll)
     return torch.cat(mus), torch.cat(vars_), torch.cat(mlls)
 
 
@@ -196,12 +213,12 @@ def bucketed_streamed_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
                               refine_steps: int = 0):
     """Fused fit+predict over size buckets. Returns per-leaf moments in
     global leaf order: ``(mu [L, T|tmax], var, mll [L])``; ``tidx
-    [L, tmax]`` (int64) routes test points to leaves."""
-    if refine_steps:
-        raise NotImplementedError(REFINE_TODO)
+    [L, tmax]`` (int64) routes test points to leaves. Under
+    ``refine_steps`` (:func:`streamed_leaf_predict`) the moments and mlls
+    are float64, so that the caller's SPN combine runs in float64 too."""
     T = xt.shape[0] if tidx is None else tidx.shape[1]
     dev = batches[0].x.device
-    dt = batches[0].x.dtype
+    dt = torch.float64 if refine_steps else batches[0].x.dtype
     mu = torch.zeros((L, T), dtype=dt, device=dev)
     var = torch.ones((L, T), dtype=dt, device=dev)
     mll = torch.zeros((L,), dtype=dt, device=dev)
@@ -211,7 +228,7 @@ def bucketed_streamed_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
         chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
         ti = None if tidx is None else tidx[idx]
         mu[idx], var[idx], mll[idx] = streamed_leaf_predict(
-            layout, th, b, xt, ti, chunk=chunk)
+            layout, th, b, xt, ti, chunk=chunk, refine_steps=refine_steps)
     return mu, var, mll
 
 

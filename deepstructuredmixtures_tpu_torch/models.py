@@ -33,19 +33,15 @@ import torch
 from . import fit as fitlib
 from . import infer as inferlib
 from .config import EPS, DSMGPConfig, as_2d, default_dtype
+from .gp import MESH_TODO, GaussianProcess  # GaussianProcess: re-export
 from .hyper import initial_vector, make_layout, noise_from, unpack
 from .kernels import IsoSE, gram_diag, normalize_kernels
 from .plan import (_round_up, bucket_batches, bucketize, build_schedule,
                    compile_tree)
 from .tree import build_tree, num_mixtures, stats
 
-__all__ = ["DSMGP", "PoE", "GPoE", "RBCM", "build_dsmgp", "build_poe",
-           "build_bcm"]
-
-#: options of the JAX package that later work brings, with the ROADMAP item
-TODO = {
-    "mesh": "fit(mesh=...) is not ported yet: ROADMAP Queue 1 item 11",
-}
+__all__ = ["DSMGP", "PoE", "GPoE", "RBCM", "GaussianProcess", "build_dsmgp",
+           "build_poe", "build_bcm"]
 
 #: ``fit(store='auto')`` keeps the monolithic factors up to this many bytes
 FULL_STORE_BYTES = 2 << 30
@@ -201,7 +197,7 @@ class BaseModel:
         back to the batched fit with a warning, the hybrid store refuses
         it. ``chunk`` bounds the leaves factored at once."""
         if mesh is not None:
-            raise NotImplementedError(TODO["mesh"])
+            raise NotImplementedError(MESH_TODO)
         if method not in ("auto", "batched", "shared"):
             raise ValueError(f"unknown method {method!r}")
         if store not in ("auto", "full", "light", "hybrid"):
@@ -370,9 +366,13 @@ class DSMGP(BaseModel):
         its leaves chunk by chunk; the moments are matched in log space.
         The cached solves run in float64 against the float32 factors
         (``fit.cached_leaf_predict``). ``return_var=False`` returns the
-        mean alone."""
-        if refine_steps:
-            raise NotImplementedError(fitlib.REFINE_TODO)
+        mean alone.
+
+        ``refine_steps > 0``: mixed-precision refinement of the leaf solves
+        against true-K float64 residuals (``ops/refine.py``). It always
+        takes the streamed path, whatever the store (the mean-only alpha
+        path and the cached factors are skipped), and its float64 leaf
+        moments go through the float64 combine."""
         xt_np = as_2d(np.asarray(xt))
         T = xt_np.shape[0]
         tidx, tmask = self._route(xt_np)
@@ -382,12 +382,15 @@ class DSMGP(BaseModel):
         xt_d = torch.as_tensor(xt_np, dtype=self.dtype, device=self.device)
         args = (self.layout, self.theta, self.bucket_batches,
                 self.bucket_spec.leaf_ids, self.num_leaves)
-        if not return_var and self._alpha_cache is not None:
+        if not return_var and not refine_steps and self._alpha_cache is not None:
             mu = fitlib.bucketed_alpha_mean(*args, self._alpha_cache, xt_d, ti)
             mean, _ = _routed_moment_match(self.plan, mu, torch.ones_like(mu),
                                            self.logweights, ti, tm, T)
             return mean
-        if self.posterior is not None:
+        if refine_steps:
+            mu, var, _ = fitlib.bucketed_streamed_predict(
+                *args, xt_d, ti, refine_steps=refine_steps)
+        elif self.posterior is not None:
             mu, var = fitlib.cached_leaf_predict(
                 self.layout, self.theta, self.batch, self.posterior.chol, xt_d,
                 ti)

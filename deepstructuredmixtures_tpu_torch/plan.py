@@ -69,6 +69,17 @@ class SPNPlan:
     #: None when compiled with ``overlap=False``
     overlap: Optional[object] = None
 
+    @property
+    def path_matrix(self) -> np.ndarray:
+        """Dense ``[L, E]`` 0/1 leaf-path matrix, materialized on demand
+        from the sparse ``path_edges`` / ``path_mask`` form (host-side
+        diagnostics only; ~1 GB at 20k leaves × 5k edges)."""
+        L = self.num_leaves
+        dense = np.zeros((L, max(self.n_sum_edges, 1)), dtype=np.float64)
+        rows = np.repeat(np.arange(L), self.path_mask.sum(axis=1))
+        dense[rows, self.path_edges[self.path_mask]] = 1.0
+        return dense
+
     def leaf_batch(self, X, y, dtype, device) -> LeafBatch:
         """The monolithic ``[L, nmax]`` leaf batch on ``device``: every leaf
         padded to the plan's ``nmax`` (the whole-model fit paths and the

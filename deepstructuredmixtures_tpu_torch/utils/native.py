@@ -3,8 +3,9 @@
 The subset of ``deepstructuredmixtures_tpu/utils/native.py`` that the
 port uses: half-open box routing of test points (≙ ``getchild``,
 ``common.jl:101-122``), routed-index packing, the ragged to padded leaf
-packer, and the two kernels of the sparse leaf-overlap analysis
-(intersecting leaf boxes, then the observation counts of those pairs).
+packer, the two kernels of the sparse leaf-overlap analysis
+(intersecting leaf boxes, then the observation counts of those pairs) and
+the dense pairwise counts of ``intersect_counts``.
 Host C++, shared with the JAX package; each function has a NumPy fallback
 for when the library is missing or does not load.
 """
@@ -79,6 +80,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
             _PACK_SYMS.update(("dsm_box_pairs", "dsm_pair_intersect"))
         except AttributeError:
             pass
+        try:  # the dense pairwise counts (absent from a stale library)
+            lib.dsm_intersect_counts.argtypes = [
+                ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ]
+            lib.dsm_intersect_counts.restype = None
+            _PACK_SYMS.add("dsm_intersect_counts")
+        except AttributeError:
+            pass
         for name, valt in (("dsm_pack_leaves_f32", ctypes.c_float),
                            ("dsm_pack_leaves_f64", ctypes.c_double)):
             try:
@@ -104,6 +114,27 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def intersect_counts(masks_bool: np.ndarray) -> np.ndarray:
+    """Pairwise |obs_i ∩ obs_j| ``[L, L]`` int64 from a boolean ``[L, N]``
+    membership matrix (popcounts of packed words in the library)."""
+    L = masks_bool.shape[0]
+    lib = get_lib()
+    if lib is None or "dsm_intersect_counts" not in _PACK_SYMS:
+        m = masks_bool.astype(np.int64)
+        return m @ m.T
+    packed = np.packbits(masks_bool, axis=1, bitorder="little")
+    W = (packed.shape[1] + 7) // 8
+    pad = W * 8 - packed.shape[1]
+    if pad:
+        packed = np.concatenate(
+            [packed, np.zeros((L, pad), dtype=np.uint8)], axis=1)
+    words = np.ascontiguousarray(packed).view(np.uint64).reshape(L, W)
+    out = np.zeros((L, L), dtype=np.int64)
+    lib.dsm_intersect_counts(_ptr(words, ctypes.c_uint64), L, W,
+                             _ptr(out, ctypes.c_int64))
+    return out
 
 
 def box_pairs(lb: np.ndarray, ub: np.ndarray):

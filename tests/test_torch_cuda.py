@@ -194,3 +194,33 @@ def test_cuda_blocked_cholesky_not_positive_definite(cuda_device):
         ref = np.linalg.cholesky(A[g].astype(np.float64))
         assert np.abs(out[g].cpu().numpy() - ref).max() < POTRF_TOL
     check_potrf_contract(out[[0, 2]].cpu().numpy(), valid)
+
+
+@pytest.mark.cuda
+def test_cuda_refined_predict_matches_cpu_float64(cuda_device):
+    """``predict(refine_steps=1)`` of a float32 model on the card (its
+    buckets factored by the fused kernel) against the float64 model on the
+    CPU, under the same sum weights: the bounds of ``tests/test_refine.py``
+    (mean 5e-6 absolute, variance 1e-5 relative), where the unrefined
+    float32 prediction misses them."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    rng = np.random.default_rng(7)
+    x = np.sort(rng.uniform(0.0, 1.0, 1200)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 5 * np.pi) + rng.normal(0.0, 0.3, 1200)
+    xt = np.linspace(0.02, 0.98, 31).reshape(-1, 1)
+    kw = dict(V=2, K=2, M=60, kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-3.0,
+              seed=3)
+    ref = tdsm.build_dsmgp(x, y, device="cpu", **kw)
+    ref.update()
+    m = tdsm.build_dsmgp(x, y, device=cuda_device, **kw)
+    m.logweights = ref.logweights.to(cuda_device)
+    mean64, var64 = (a.numpy() for a in ref.predict(xt, refine_steps=1))
+    before = fused_chol.LAUNCHES
+    mean, var = (a.cpu().numpy() for a in m.predict(xt, refine_steps=1))
+    assert fused_chol.LAUNCHES > before
+    assert mean.dtype == var.dtype == np.float64
+    assert np.abs(mean - mean64).max() < 5e-6
+    assert (np.abs(var - var64) / var64).max() < 1e-5
+    mean0 = m.predict(xt)[0].cpu().numpy()
+    assert np.abs(mean0 - mean64).max() > np.abs(mean - mean64).max()

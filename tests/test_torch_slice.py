@@ -127,8 +127,8 @@ def test_from_jax_arrays_loads_logweights(runs):
 
 @pytest.mark.parametrize("call", [
     lambda m: m.fit(mesh=object()),
-    lambda m: m.predict(np.zeros(3), refine_steps=1),
-], ids=["mesh", "refine"])
+    lambda m: tdsm.GaussianProcess(m.X, m.y, device="cpu").fit(mesh=object()),
+], ids=["mesh", "gp_mesh"])
 def test_later_options_raise(runs, call):
     _, tm, _, _ = runs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -140,10 +140,16 @@ def test_port_never_imports_jax():
         "import sys, numpy as np\n"
         "import deepstructuredmixtures_tpu_torch as t\n"
         "from deepstructuredmixtures_tpu_torch import checkpoint, serve\n"
-        "from deepstructuredmixtures_tpu_torch.ops import potrf\n"
+        "from deepstructuredmixtures_tpu_torch import datasets, gp, introspect\n"
+        "from deepstructuredmixtures_tpu_torch import metrics, plotting\n"
+        "from deepstructuredmixtures_tpu_torch.ops import potrf, refine\n"
+        "from deepstructuredmixtures_tpu_torch.utils import profiling\n"
         "x = np.linspace(0, 1, 200); y = np.sin(6 * x)\n"
         "m = t.build_dsmgp(x, y, M=20, device='cpu', seed=1)\n"
         "m.update(); m.predict(np.linspace(0, 1, 9))\n"
+        "m.predict(np.linspace(0, 1, 9), refine_steps=1)\n"
+        "t.GaussianProcess(x, y, device='cpu').fit().predict(x[:5])\n"
+        "t.left_gp(m).mll(); t.get_log_noise(m, x[:3])\n"
         "m.fit(store='hybrid'); m.predict(np.linspace(0, 1, 9))\n"
         "assert all(f is not None for f in m._bucket_factors)\n"
         "m = t.build_dsmgp(x, y, M=20, device='cpu', seed=1, overlap=True)\n"

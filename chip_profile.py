@@ -2,7 +2,7 @@
 """Where the device time goes in the port's cells, on one NVIDIA GPU.
 
     python3 chip_profile.py [--n 100000] [--depth D] [--refine-steps K]
-                            [--float64]
+                            [--float64] [--train]
 
 Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
 IsoSE(0, 0), log noise -1, seed 0, float32) on ``--n`` points, fits it once
@@ -15,6 +15,11 @@ With ``--depth D``, ``--refine-steps K`` or ``--float64``: the same model
 streamed pipeline of the benchmark (``bucketed_streamed_predict`` with K
 refinement steps → ``update_weights`` → ``_routed_moment_match`` at
 T=2000), run once to warm up and once under the profiler.
+
+With ``--train``: one training gradient of the model (float64 with
+``--float64``) by the route ``train`` takes (``train._train_vg``: the
+per-bucket route at N=100k), run once to warm up and once under the
+profiler.
 
 For each profiled call, one JSON line: the wall-clock, the device time
 summed over all kernels, split by what the kernels do (the fused
@@ -122,6 +127,8 @@ def main():
                     help="profile the streamed pipeline with K refinement steps")
     ap.add_argument("--float64", action="store_true",
                     help="profile the streamed pipeline of the float64 model")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training gradient instead")
     args = ap.parse_args()
     streamed = args.depth is not None or args.refine_steps or args.float64
     depth = args.depth or 2
@@ -137,6 +144,18 @@ def main():
                              log_noise=-1.0, seed=0, device="cuda",
                              dtype=torch.float64 if args.float64 else torch.float32,
                              do_fit=False, depth=depth)
+    if args.train:
+        from deepstructuredmixtures_tpu_torch.train import _train_vg
+
+        vg = _train_vg(model)
+        vg(model.theta)  # warms the allocator and the libraries
+        print(json.dumps({"card": card, "n": args.n, "depth": depth,
+                          "dtype": str(model.dtype), "leaves": model.num_leaves,
+                          "nmax_max": max(b.nmax for b in model.bucket_batches)}),
+              flush=True)
+        profile(f"train_grad_n{args.n}_{str(model.dtype).split('.')[-1]}",
+                lambda: vg(model.theta))
+        return
     if streamed:
         import chip_smoke
 

@@ -75,7 +75,25 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    fit, predict at T=2000 and ``grad_mll`` times; float32 against float64;
    the full covariance's diagonal against the marginal variance; the
    float64 gradient against a central finite difference;
-11. a JSON line of the kernels, the card's name and power limit, and last
+11. training, on fresh models (the optimizer's first step, which imports
+   ``torch._dynamo``, timed apart): at N=20,000 the root mll and its
+   gradient at the start hypers by the route ``train`` takes (one graph
+   through every bucket) in float32 against float64 (mll within 1e-3,
+   gradient within 1e-2 relative in norm), with no kernel launched, and
+   the float64 gradient against a central difference (1e-4); ``train``
+   (Adam, lr 1e-2, 5 iterations): the mll curve ascends, no kernel
+   launches before the refit, which launches the fused kernel 3 times.
+   At N=100,000 ``train`` (2 iterations; the per-bucket route, nmax up to
+   16,232): cold and warm seconds per iteration, peak memory, the first
+   iteration's float32 gradient against float64; then ``finetune`` of the
+   trained model for its two largest and two smallest leaves (one
+   iteration, the sparse pair list). At N=4,000 (phase 8's full-store
+   model) the candidate gradients of all 144 leaves, sparse pair list
+   against every pair in float64 (1e-10) and float32 against float64, and
+   one ``finetune`` iteration whose refit keeps the full store and
+   launches the fused kernel once. ``train_gp`` on phase 10's GP, 5
+   iterations;
+12. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1172,6 +1190,347 @@ def phase_gp():
         card=card_line())
 
 
+#: training (phase 11): the float32 gradient against float64 on the card,
+#: relative in norm: float32 Cholesky backward on leaves whose condition
+#: number is about 1e5 (noise e^-2, n up to 16k); the float64 gradient
+#: against a central difference of step TRAIN_FD_STEP per component,
+#: |g - fd| <= TRAIN_FD_TOL * max(1, |fd|) (tests/test_train.py:68-81); the
+#: fine-tune candidate gradients, sparse pair list against every pair, in
+#: float64 (the bound of tests/test_train.py:242-243)
+TRAIN_GRAD_TOL, TRAIN_FD_TOL, TRAIN_FD_STEP, FT_SPARSE_TOL = 1e-2, 1e-4, 1e-5, 1e-10
+TRAIN_LR = 1e-2
+#: train iterations at N=20k and N=100k, fine-tune iterations, train_gp
+#: iterations
+TRAIN_ITERS = {20_000: 5, 100_000: 2, "finetune": 1, "gp": 5}
+
+
+def _train_model(n_train, dtype, overlap=False):
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(n_train)
+    return tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                            log_noise=-1.0, seed=0, device="cuda", dtype=dtype,
+                            do_fit=False, overlap=overlap)
+
+
+def _recording(opt_cls, record, **kw):
+    """A factory of ``opt_cls`` whose ``step`` first appends to ``record``
+    the synchronized time, the kernel launches so far and the gradient it
+    ascends (``-grad``): one entry per training iteration."""
+    import torch
+
+    class Recording(opt_cls):
+        def step(self, closure=None):
+            torch.cuda.synchronize()
+            p = self.param_groups[0]["params"][0]
+            record.append((time.perf_counter(), launches(), -p.grad.clone()))
+            return super().step(closure)
+
+    return lambda params: Recording(params, **kw)
+
+
+def _iteration_seconds(t0, record):
+    """Seconds of each iteration: the first from ``t0`` (cold: it builds
+    the route and runs the first gradient), then step to step (warm)."""
+    stamps = [t0] + [r[0] for r in record]
+    return [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def _rel(a, b):
+    """Relative error of ``a`` against ``b`` in norm."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _train_run(model, iterations):
+    """``train(model, Adam, iterations, randinit=False)`` with every
+    iteration recorded; checks that no kernel launched before the refit and
+    that the mll curve ascends. Returns ``(hist, record, iteration seconds,
+    train seconds, refit launches)``."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    record = []
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tdsm.train(model, _recording(torch.optim.Adam, record, lr=TRAIN_LR),
+                      iterations=iterations, randinit=False, progress=False)
+    train_s = time.perf_counter() - t0
+    if any(r[1] != (0, 0) for r in record):
+        raise AssertionError(f"a kernel launched inside training: "
+                             f"{[r[1] for r in record]}")
+    if not (hist.shape == (iterations,) and np.all(np.diff(hist) > 0)):
+        raise AssertionError(f"the mll curve does not ascend: {hist.tolist()}")
+    return hist, record, _iteration_seconds(t0, record), train_s, launches()
+
+
+def phase_train_20k():
+    """Training at N=20k (every bucket below nmax 4096: one graph through
+    all buckets): the root mll and its gradient at the start hypers in
+    float32 against float64, no kernel launched by the gradient, the
+    float64 gradient against a central difference; then ``train`` (Adam,
+    lr 1e-2, 5 iterations), whose refit factors the three fused buckets.
+    Returns the refit's ``(fused, blocked)`` launches."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.train import (_train_vg,
+                                                         make_mll_fn_bucketed)
+
+    n = 20_000
+    m32, m64 = _train_model(n, torch.float32), _train_model(n, torch.float64)
+    out = {}
+    for name, m in (("float32", m32), ("float64", m64)):
+        vg = _train_vg(m)
+        reset_launches()
+        t0 = time.perf_counter()
+        val, g = vg(m.theta)
+        torch.cuda.synchronize()
+        out[name] = dict(mll=float(val), grad=g.double().cpu().numpy(),
+                         grad_s=time.perf_counter() - t0, launches=launches())
+        if out[name]["launches"] != (0, 0):
+            raise AssertionError(f"N=20k {name} gradient launched "
+                                 f"{out[name]['launches']}")
+    mll_rel = abs(out["float32"]["mll"] - out["float64"]["mll"]) / abs(
+        out["float64"]["mll"])
+    grad_rel = _rel(out["float32"]["grad"], out["float64"]["grad"])
+    if not (mll_rel <= SLICE_TOL["evidence_rel"] and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"N=20k f32 vs f64: mll {mll_rel}, grad {grad_rel}")
+    f = make_mll_fn_bucketed(m64.layout, m64.plan, m64.bucket_batches,
+                             m64.bucket_spec.leaf_ids)
+    theta = m64.theta.cpu().numpy()
+    fd = np.zeros_like(theta)
+    with torch.no_grad():
+        for i in range(theta.size):
+            vals = []
+            for sign in (1.0, -1.0):
+                t = theta.copy()
+                t[i] += sign * TRAIN_FD_STEP
+                vals.append(float(f(torch.as_tensor(t, device="cuda"))))
+            fd[i] = (vals[0] - vals[1]) / (2 * TRAIN_FD_STEP)
+    g64 = out["float64"]["grad"]
+    fd_err = np.abs(g64 - fd) / np.maximum(1.0, np.abs(fd))
+    if not np.all(fd_err <= TRAIN_FD_TOL):
+        raise AssertionError(f"N=20k f64 gradient {g64} vs difference {fd}")
+    del m64
+    hist, _, it_s, train_s, refit = _train_run(m32, TRAIN_ITERS[n])
+    if refit != (3, 0) or m32.posterior is not None:
+        raise AssertionError(f"N=20k refit launched {refit} (expected 3 fused)")
+    say("train_n20000", route="make_mll_fn_bucketed under autograd",
+        mll={k: v["mll"] for k, v in out.items()},
+        grad={k: v["grad"].tolist() for k, v in out.items()},
+        grad_s={k: v["grad_s"] for k, v in out.items()},
+        mll_f32_rel_vs_f64=mll_rel, grad_f32_rel_vs_f64=grad_rel,
+        grad_f64_vs_finite_difference=float(fd_err.max()),
+        tolerances={"mll_rel": SLICE_TOL["evidence_rel"],
+                    "grad_rel": TRAIN_GRAD_TOL, "fd": TRAIN_FD_TOL},
+        train_hist=hist.tolist(), iteration_s=it_s, train_s=train_s,
+        refit_launches=refit, card=card_line())
+    return refit
+
+
+def phase_train_100k():
+    """Training at the headline width, N=100k (the per-bucket route: one
+    graph per leaf chunk): ``train`` (Adam, lr 1e-2, 2 iterations) with its
+    cold and warm seconds per iteration, the mll curve and peak memory; the
+    first iteration's float32 gradient against the float64 gradient at the
+    same hypers. Returns the trained float32 model and the refit's
+    launches."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.train import _train_vg
+
+    n = 100_000
+    m32 = _train_model(n, torch.float32, overlap=True)
+    if max(b.nmax for b in m32.bucket_batches) < 4096:
+        raise AssertionError("N=100k: expected buckets above nmax 4096")
+    torch.cuda.reset_peak_memory_stats()
+    hist, record, it_s, train_s, refit = _train_run(m32, TRAIN_ITERS[n])
+    peak = torch.cuda.max_memory_allocated()
+    if refit != (0, 0):
+        raise AssertionError(f"N=100k refit launched {refit}")
+    m64 = _train_model(n, torch.float64)
+    t0 = time.perf_counter()
+    v64, g64 = _train_vg(m64)(m64.theta)
+    torch.cuda.synchronize()
+    grad64_s = time.perf_counter() - t0
+    g64 = g64.cpu().numpy()
+    del m64
+    g32 = record[0][2].double().cpu().numpy()
+    mll_rel = abs(hist[0] - float(v64)) / abs(float(v64))
+    grad_rel = _rel(g32, g64)
+    if not (mll_rel <= SLICE_TOL["evidence_rel"] and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"N=100k f32 vs f64: mll {mll_rel}, grad {grad_rel}")
+    say("train_n100000", route="make_value_and_grad_bucketed",
+        leaves=m32.num_leaves, nmax_max=max(b.nmax for b in m32.bucket_batches),
+        train_hist=hist.tolist(), iteration_s=it_s,
+        cold_iteration_s=it_s[0], warm_iteration_s=it_s[1:], train_s=train_s,
+        peak_memory_bytes=peak, mll_f32_rel_vs_f64=mll_rel,
+        grad_f32=g32.tolist(), grad_f64=g64.tolist(), grad_f64_s=grad64_s,
+        grad_f32_rel_vs_f64=grad_rel, refit_launches=refit, card=card_line())
+    return m32, refit
+
+
+def phase_finetune_4k():
+    """Fine-tuning the full-store model of phase 8 at N=4k: every leaf a
+    candidate (144), through the monolithic batch, as ``finetune`` routes
+    it; the sparse pair-list candidate gradients against the all-pairs ones
+    in float64 on the card, float32 against float64; one ``finetune``
+    iteration, timed, with no kernel launched before the refit, which keeps
+    the full store under per-leaf hypers and launches the fused kernel
+    once. Returns the refit's launches."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.train import (
+        _candidate_rows, make_finetune_vg_bucketed)
+
+    n = 4_000
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        m = _full_model(n, dtype)
+        L = m.num_leaves
+        Dd = _candidate_rows(m.plan.overlap, np.arange(L))
+        np.fill_diagonal(Dd, 1.0)
+        W = torch.as_tensor(Dd, dtype=dtype, device="cuda")
+        H = m.theta.expand(L, -1).contiguous()
+        for sparse in ((False, True) if dtype == torch.float64 else (True,)):
+            vg = make_finetune_vg_bucketed(m.layout, m.plan, [m.batch],
+                                           [np.arange(L)], sparse=sparse)
+            reset_launches()
+            t0 = time.perf_counter()
+            mll, G = vg(H, W)
+            torch.cuda.synchronize()
+            key = f"{str(dtype).split('.')[-1]}_{'sparse' if sparse else 'dense'}"
+            out[key] = dict(G=G.double().cpu().numpy(), s=time.perf_counter() - t0,
+                            launches=launches())
+            if out[key]["launches"] != (0, 0):
+                raise AssertionError(f"N=4k {key} launched {out[key]['launches']}")
+    density = float((Dd != 0).mean())
+    d, sp = out["float64_dense"]["G"], out["float64_sparse"]["G"]
+    sparse_err = float(np.max(np.abs(sp - d) / (1.0 + np.abs(d))))
+    f32_rel = _rel(out["float32_sparse"]["G"], sp)
+    if not (sparse_err <= FT_SPARSE_TOL and f32_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"N=4k candidate gradients: sparse vs dense "
+                             f"{sparse_err}, f32 vs f64 {f32_rel}")
+    record = []
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tdsm.finetune(m, _recording(torch.optim.Adam, record, lr=TRAIN_LR),
+                         iterations=TRAIN_ITERS["finetune"], progress=False)
+    finetune_s = time.perf_counter() - t0
+    refit = launches()
+    if record[0][1] != (0, 0) or refit != (1, 0) or m.posterior is None:
+        raise AssertionError(f"N=4k finetune: launches {record[0][1]} before "
+                             f"and {refit} after the refit, full store "
+                             f"{m.posterior is not None}")
+    if not (m.theta.shape == (L, m.layout.total) and np.isfinite(hist).all()):
+        raise AssertionError("N=4k finetune did not untie the hypers")
+    say("finetune_n4000", leaves=L, candidates=L, route="monolithic batch",
+        overlap_density=density,
+        candidate_grad_s={k: v["s"] for k, v in out.items()},
+        sparse_vs_dense_f64=sparse_err, grad_f32_rel_vs_f64=f32_rel,
+        tolerances={"sparse": FT_SPARSE_TOL, "grad_rel": TRAIN_GRAD_TOL},
+        finetune_hist=hist.tolist(), iteration_s=_iteration_seconds(t0, record),
+        finetune_s=finetune_s, refit_launches=refit, card=card_line())
+    return refit
+
+
+def phase_finetune_100k(model):
+    """One ``finetune`` iteration on the trained N=100k model for its two
+    largest and two smallest leaves (the per-bucket route, the sparse pair
+    list), timed, with peak memory; no kernel launches (the refit streams
+    above the fused kernel's domain). Returns the launches."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.train import _candidate_rows
+
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    order = np.argsort(sizes, kind="stable")
+    pick = np.concatenate([order[-2:], order[:2]])
+    theta0 = model.theta.cpu().numpy()
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tdsm.finetune(model, _recording(torch.optim.Adam, record, lr=TRAIN_LR),
+                         iterations=TRAIN_ITERS["finetune"], leaves=pick,
+                         progress=False)
+    finetune_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    H = model.theta.cpu().numpy()
+    rest = np.setdiff1d(np.arange(model.num_leaves), pick)
+    if launches() != (0, 0) or not np.isfinite(hist).all():
+        raise AssertionError(f"N=100k finetune: launches {launches()}, {hist}")
+    if not (np.array_equal(H[rest], np.broadcast_to(theta0, H[rest].shape))
+            and not np.allclose(H[pick], theta0)):
+        raise AssertionError("N=100k finetune moved rows it does not tune")
+    say("finetune_n100000", leaves=pick.tolist(), leaf_sizes=sizes[pick].tolist(),
+        overlap_nonzeros=int(np.count_nonzero(_candidate_rows(model.plan.overlap,
+                                                              pick))),
+        finetune_hist=hist.tolist(), iteration_s=_iteration_seconds(t0, record),
+        finetune_s=finetune_s, peak_memory_bytes=peak, launches=launches(),
+        card=card_line())
+    return launches()
+
+
+def phase_train_gp():
+    """``train_gp`` on phase 10's GP (N=8192, float32), RMSprop lr 1e-3
+    (decay 0.9), 5 iterations: seconds per iteration."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(GP_N)
+    gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-1.0,
+                              device="cuda", dtype=torch.float32)
+    record = []
+    t0 = time.perf_counter()
+    hist = tdsm.train_gp(gp, iterations=TRAIN_ITERS["gp"], randinit=False,
+                         optimizer=_recording(torch.optim.RMSprop, record,
+                                              lr=1e-3, alpha=0.9),
+                         progress=False)
+    train_s = time.perf_counter() - t0
+    if not (hist.shape == (TRAIN_ITERS["gp"],) and np.isfinite(hist).all()):
+        raise AssertionError(f"train_gp: {hist}")
+    say(f"train_gp_n{GP_N}", hist=hist.tolist(),
+        iteration_s=_iteration_seconds(t0, record), train_s=train_s,
+        card=card_line())
+
+
+def _first_optimizer_step_s():
+    """Seconds of the process's first ``torch.optim`` step, on a tiny
+    tensor: it imports ``torch._dynamo``, which would otherwise land in the
+    first training iteration's time."""
+    import torch
+
+    p = torch.zeros(3, device="cuda", requires_grad=True)
+    p.grad = torch.ones_like(p)
+    t0 = time.perf_counter()
+    torch.optim.Adam([p]).step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_training():
+    """Phase 11, training (see the module docstring). Returns the
+    ``(fused, blocked)`` launches of its refits."""
+    t0 = time.perf_counter()
+    say("optimizer_import", first_step_s=_first_optimizer_step_s())
+    launched = np.zeros(2, dtype=int)
+    launched += phase_train_20k()
+    model, refit = phase_train_100k()
+    launched += refit
+    launched += phase_finetune_100k(model)
+    del model
+    launched += phase_finetune_4k()
+    phase_train_gp()
+    say("training", seconds=time.perf_counter() - t0,
+        refit_launches=launched.tolist())
+    return tuple(int(v) for v in launched)
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -1198,6 +1557,9 @@ def main():
         fused_launches += fused
         blocked_launches += blocked
     phase_gp()
+    train_fused, train_blocked = phase_training()
+    fused_launches += train_fused
+    blocked_launches += train_blocked
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [{

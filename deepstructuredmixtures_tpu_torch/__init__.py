@@ -14,13 +14,16 @@ copies, Givens row deletion and continued Cholesky) → ``update`` /
 ``infer`` (posterior sum weights) → ``predict`` (routed mixture
 prediction, ``refine_steps=k`` for float64 true-K refinement of the float32
 solves, or the PoE fusions), plus the standalone exact
-``GaussianProcess``, ``checkpoint`` (the JAX package's npz format),
-``serve`` (``Predictor``, ``MicroBatcher``, HTTP) and the host-side
-utilities (``introspect``, ``metrics``, ``datasets``, ``plotting``,
-``utils.profiling``). Training and the multi-device path are not ported
-yet. The two
-factorization kernels, fused gram+Cholesky and blocked Cholesky, are
-hand-written CUDA (``csrc/``), built with ``nvcc`` on first use.
+``GaussianProcess``, training (``train``: tied hypers by mll ascent;
+``train_gp``; ``finetune``: per-leaf hypers, with a sparse pair-list
+backward), each with a ``torch.optim`` optimizer factory, ``checkpoint``
+(the JAX package's npz format), ``serve`` (``Predictor``,
+``MicroBatcher``, HTTP) and the host-side utilities (``introspect``,
+``metrics``, ``datasets``, ``plotting``, ``utils.profiling``). The
+multi-device path is not ported yet. The two factorization kernels, fused
+gram+Cholesky and blocked Cholesky, are hand-written CUDA (``csrc/``),
+built with ``nvcc`` on first use; training differentiates through
+``torch.linalg`` and refits through the kernels.
 
 Importing the package turns TF32 off for float32 matmuls and
 convolutions: grams and Cholesky updates need full float32 (nearby points
@@ -59,6 +62,7 @@ from .introspect import (  # noqa: E402
     right_gp,
 )
 from .plotting import kernelid_function  # noqa: E402
+from .train import finetune, train, train_gp  # noqa: E402
 from . import checkpoint  # noqa: E402
 
 
@@ -100,6 +104,9 @@ __all__ = [
     "right_gp",
     "rand_init",
     "kernelid_function",
+    "train",
+    "train_gp",
+    "finetune",
     "checkpoint",
 ]
 

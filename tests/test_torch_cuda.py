@@ -224,3 +224,33 @@ def test_cuda_refined_predict_matches_cpu_float64(cuda_device):
     assert (np.abs(var - var64) / var64).max() < 1e-5
     mean0 = m.predict(xt)[0].cpu().numpy()
     assert np.abs(mean0 - mean64).max() > np.abs(mean - mean64).max()
+
+
+@pytest.mark.cuda
+def test_cuda_training_gradient_launches_no_fused_kernel(cuda_device):
+    """The training gradient of a float32 model on the card, whose buckets
+    are in the fused kernel's domain, launches no fused kernel (it has no
+    backward; the objective factors with ``torch.linalg``) and matches the
+    float64 gradient on the card: value within 1e-3, gradient within 1e-2
+    relative in norm (the bounds of ``chip_smoke.py``'s training phase)."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.train import _train_vg
+
+    rng = np.random.default_rng(7)
+    x = np.sort(rng.uniform(0.0, 1.0, 1200)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 5 * np.pi) + rng.normal(0.0, 0.3, 1200)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        m = tdsm.build_dsmgp(x, y, V=2, K=2, M=60, kernel=tdsm.IsoSE(0.0, 0.0),
+                             log_noise=-1.0, seed=3, device=cuda_device,
+                             dtype=dtype, do_fit=False, overlap=False)
+        before = fused_chol.LAUNCHES
+        val, g = _train_vg(m)(m.theta)
+        torch.cuda.synchronize()
+        assert fused_chol.LAUNCHES == before
+        out[dtype] = (float(val), g.double().cpu().numpy())
+    assert any(fused_chol.supported(b.nmax, torch.float32, m.layout.kinds,
+                                    cuda_device) for b in m.bucket_batches)
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    assert abs(v32 - v64) <= 1e-3 * abs(v64)
+    assert np.linalg.norm(g32 - g64) <= 1e-2 * np.linalg.norm(g64)

@@ -156,6 +156,10 @@ def test_port_never_imports_jax():
         "assert m.posterior is not None and m.schedule is not None\n"
         "m.fit(store='full'); m.fit(method='shared'); m.update()\n"
         "m.predict(np.linspace(0, 1, 9))\n"
+        "t.train(m, iterations=2, randinit=False)\n"
+        "t.finetune(m, iterations=1); m.predict(np.linspace(0, 1, 9))\n"
+        "t.train_gp(t.GaussianProcess(x, y, device='cpu'), iterations=2,"
+        " randinit=False)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('deepstructuredmixtures_tpu.')"
         " or k == 'deepstructuredmixtures_tpu']\n"

@@ -239,6 +239,5 @@ def test_prediction_alias_and_exports(pair):
         assert torch.equal(a, b)
     import deepstructuredmixtures_tpu as j
 
-    ported = set(j.__all__) - {"train", "train_gp", "finetune"}
-    assert set(tdsm.__all__) == ported
+    assert set(tdsm.__all__) == set(j.__all__)
     assert all(hasattr(tdsm, n) for n in tdsm.__all__)

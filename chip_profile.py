@@ -2,7 +2,7 @@
 """Where the device time goes in the port's cells, on one NVIDIA GPU.
 
     python3 chip_profile.py [--n 100000] [--depth D] [--refine-steps K]
-                            [--float64] [--train]
+                            [--float64] [--train] [--mesh]
 
 Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
 IsoSE(0, 0), log noise -1, seed 0, float32) on ``--n`` points, fits it once
@@ -20,6 +20,11 @@ With ``--train``: one training gradient of the model (float64 with
 ``--float64``) by the route ``train`` takes (``train._train_vg``: the
 per-bucket route at N=100k), run once to warm up and once under the
 profiler.
+
+With ``--mesh``: one ``fit(mesh=...)`` of the model in a world of one rank
+under NCCL, with ``chip_smoke.py``'s giant-leaf budget and panel (the
+leaves above the budget on the distributed Cholesky, the rest the light
+fit), run once to warm up and once under the profiler.
 
 For each profiled call, one JSON line: the wall-clock, the device time
 summed over all kernels, split by what the kernels do (the fused
@@ -114,6 +119,44 @@ def profile(label, fn, top=12, quiet=False):
     return rec
 
 
+def profile_mesh_fit(model, card, n):
+    """``--mesh``: see the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from deepstructuredmixtures_tpu_torch import parallel
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=build)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+
+        def fit():
+            model.fit(mesh=mesh, giant_leaf_bytes=chip_smoke.MESH_GIANT_BYTES,
+                      block=chip_smoke.MESH_BLOCK)
+
+        fit()  # warms the allocator, the libraries and the collectives
+        print(json.dumps({"card": card, "n": n, "leaves": model.num_leaves,
+                          "giant_leaf_bytes": chip_smoke.MESH_GIANT_BYTES,
+                          "block": chip_smoke.MESH_BLOCK,
+                          "routed_n": sorted(int(g[4]) for g in
+                                             model._giant.values())}),
+              flush=True)
+        profile(f"mesh_fit_n{n}", fit)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -129,6 +172,8 @@ def main():
                     help="profile the streamed pipeline of the float64 model")
     ap.add_argument("--train", action="store_true",
                     help="profile one training gradient instead")
+    ap.add_argument("--mesh", action="store_true",
+                    help="profile one fit(mesh=...) in a world of one rank")
     args = ap.parse_args()
     streamed = args.depth is not None or args.refine_steps or args.float64
     depth = args.depth or 2
@@ -144,6 +189,9 @@ def main():
                              log_noise=-1.0, seed=0, device="cuda",
                              dtype=torch.float64 if args.float64 else torch.float32,
                              do_fit=False, depth=depth)
+    if args.mesh:
+        profile_mesh_fit(model, card, args.n)
+        return
     if args.train:
         from deepstructuredmixtures_tpu_torch.train import _train_vg
 

@@ -93,7 +93,25 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    one ``finetune`` iteration whose refit keeps the full store and
    launches the fused kernel once. ``train_gp`` on phase 10's GP, 5
    iterations;
-12. a JSON line of the kernels, the card's name and power limit, and last
+12. multi-device: in a world of one rank under NCCL, at N=100,000 float32
+   ``fit(mesh=..., giant_leaf_bytes=512 MiB)`` (the leaves above nmax 11585
+   on the distributed Cholesky; no kernel may launch) → ``update`` →
+   routed and mean-only ``predict`` against phase 5's float64 run, the
+   mesh fit and predict beside the light fit and streamed predict of the
+   same model (in turns, min of 2), ``sharded_cholesky`` of the largest
+   routed leaf against ``cholesky_ex`` and the blocked kernel (whose
+   launches there are not counted) with its bound, and
+   ``sharded_bucketed_streamed_predict`` against the local one; at N=20,000
+   ``fit(mesh=)`` with the largest bucket routed in float32 (the fused
+   kernel must launch, the blocked one never; against phase 4's float64)
+   and in float64 (within 1e-8 of phase 4's), the sharded training
+   gradient (float32 against float64 by phase 11's gates) and
+   ``GaussianProcess.fit(mesh=)`` at N=8,192 (float32 within the float32
+   bounds, float64 within 1e-8); then two gloo ranks sharing ``cuda:0``
+   repeat the float64 runs (N=20k fit and predict, the GP, 2 iterations of
+   ``train(mesh=)`` and 1 of ``finetune(mesh=)`` at N=4,000) and are held
+   to the world of one within 1e-8; a rank that fails fails the script;
+13. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1531,6 +1549,454 @@ def phase_training():
     return tuple(int(v) for v in launched)
 
 
+#: multi-device (phase 12): float32 leaves above nmax 11585 route to the
+#: distributed Cholesky at N=100k (``_fit_mesh`` compares nmax² · itemsize
+#: with the budget), its panel width, the float64 gate of a mesh run against
+#: the unsharded one and of two ranks against one (MULTICHIP_r05.json's),
+#: the two-rank world, and the N=4k model of its training runs
+MESH_GIANT_BYTES = 512 << 20
+MESH_BLOCK = 256
+MESH_F64_TOL = 1e-8
+MESH_RANKS = 2
+MESH_TRAIN_N, MESH_TRAIN_ITERS = 4_000, 2
+
+
+def _ref(run):
+    """The evidence and T=2000 moments of a slice run, for ``slice_errors``
+    after the run's model is gone."""
+    return {"z": run["z"], "preds": {T_TEST: run["preds"][T_TEST]}}
+
+
+def _f64_errors(a, b):
+    """Float64 gate quantities of a run ``a`` against ``b`` (``z`` and
+    ``preds`` as in ``slice_errors``): evidence relative to max(1, |z|),
+    mean and variance absolute."""
+    (ma, va), (mb, vb) = a["preds"][T_TEST], b["preds"][T_TEST]
+    return {"evidence": abs(a["z"] - b["z"]) / max(1.0, abs(b["z"])),
+            "mean_abs": float((ma - mb).abs().max()),
+            "var_abs": float((va - vb).abs().max())}
+
+
+def _gate(name, errs, tol):
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{name} past {tol}: {bad}")
+
+
+def _mesh_slice(mesh, model, budget, xt):
+    """``fit(mesh=...)`` → ``update`` → routed and mean-only ``predict`` at
+    ``xt``, synchronized; returns the run (``z``, ``preds``) and its times
+    and launches."""
+    import torch
+
+    reset_launches()
+    fit_s = model.fit(mesh=mesh, giant_leaf_bytes=budget, block=MESH_BLOCK)
+    z = model.update()
+    t0 = time.perf_counter()
+    mean, var = model.predict(xt)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean_only = model.predict(xt, return_var=False)
+    torch.cuda.synchronize()
+    mean_only_s = time.perf_counter() - t0
+    if not (torch.isfinite(mean).all() and (var > 0).all()):
+        raise AssertionError("mesh predict: non-finite or non-positive moments")
+    routed = model.last_fit_diagnostics["distributed_leaves"]
+    if routed < 1:
+        raise AssertionError("fit(mesh=...) routed no leaf")
+    return dict(z=z, preds={T_TEST: (mean, var)}, mean_only=mean_only,
+                fit_s=fit_s, predict_s=predict_s, mean_only_s=mean_only_s,
+                launches=launches(), routed=routed,
+                routed_n=sorted(int(g[4]) for g in model._giant.values()))
+
+
+def _mesh_cholesky(mesh, model):
+    """``sharded_cholesky`` of the largest giant leaf's noisy gram (float32,
+    padded to a multiple of 256 with identity) against ``cholesky_ex`` and
+    the blocked kernel on the same matrix; errors against float64. The
+    kernel's launches here are a yardstick, not the path's: they are taken
+    off its count."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.config import EPS
+    from deepstructuredmixtures_tpu_torch.hyper import unpack
+    from deepstructuredmixtures_tpu_torch.ops import potrf
+    from deepstructuredmixtures_tpu_torch.parallel import comm, dist_chol
+
+    big = max(model._giant, key=lambda l: model._giant[l][4])
+    _, _, xp, _, n, kid = model._giant[big]
+    logl, logsigma, lognoise = unpack(model.layout, model.theta, kid)
+    A = dist_chol._gram_rows(comm.resolve(mesh), model.layout.kinds[kid], xp,
+                             logl, logsigma, lognoise, n, EPS)
+    npad = A.shape[0]
+    before = potrf.LAUNCHES
+    ref = torch.linalg.cholesky(A.double())
+    err = {}
+    for name, fn in (("sharded", lambda: dist_chol.sharded_cholesky(
+            A, mesh, block=MESH_BLOCK)),
+                     ("cholesky_ex", lambda: torch.linalg.cholesky_ex(A)[0]),
+                     ("blocked", lambda: potrf.blocked_cholesky(A[None].clone())[0])):
+        err[name] = float((fn().double() - ref).abs().max())
+    del ref
+    buf = torch.empty_like(A)[None]
+    copy_ms = cuda_ms(lambda: buf.copy_(A[None]), warmup=1, reps=3)
+    ms = {"sharded": cuda_ms(lambda: dist_chol.sharded_cholesky(
+              A, mesh, block=MESH_BLOCK), warmup=1, reps=3),
+          "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(A),
+                                 warmup=1, reps=3),
+          "blocked": cuda_ms(lambda: potrf.blocked_cholesky(buf.copy_(A[None])),
+                             warmup=1, reps=3) - copy_ms}
+    potrf.LAUNCHES = before
+    b_ms, b_by = bound_ms(n ** 3 / 3, 2 * 4 * npad * npad)
+    if not (ms["sharded"] >= b_ms):
+        raise AssertionError(f"sharded_cholesky {ms['sharded']} ms below its "
+                             f"bound {b_ms} ms")
+    del A, buf
+    torch.cuda.empty_cache()
+    return dict(n=int(n), npad=int(npad), block=MESH_BLOCK, ms=ms,
+                copy_ms=copy_ms, max_abs_err_vs_f64=err, bound_ms=b_ms,
+                bound_by=b_by, sharded_over_cholesky_ex=ms["sharded"]
+                / ms["cholesky_ex"])
+
+
+def _mesh_streamed(mesh, model, ref):
+    """``sharded_bucketed_streamed_predict`` against
+    ``bucketed_streamed_predict`` on ``model`` at T=2000, each through
+    ``update_weights`` and the routed moment match, in turns (sharded,
+    local, sharded, local); the sharded moments against ``ref`` within the
+    float32 bounds."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch import infer as inferlib
+    from deepstructuredmixtures_tpu_torch.models import _routed_moment_match
+    from deepstructuredmixtures_tpu_torch.parallel import (
+        sharded_bucketed_streamed_predict)
+
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    tidx, tmask = model._route(xt)
+    ti = torch.as_tensor(tidx, dtype=torch.long, device="cuda")
+    tm = torch.as_tensor(tmask, device="cuda")
+    args = (model.layout, model.theta, model.bucket_batches,
+            model.bucket_spec.leaf_ids, model.num_leaves,
+            torch.as_tensor(xt, dtype=model.dtype, device="cuda"), ti)
+    fns = {"sharded": lambda: sharded_bucketed_streamed_predict(*args,
+                                                                mesh=mesh),
+           "local": lambda: fitlib.bucketed_streamed_predict(*args)}
+    times, outs = {"sharded": [], "local": []}, {}
+    for name in ("sharded", "local", "sharded", "local"):
+        t0 = time.perf_counter()
+        mu, var, mll = fns[name]()
+        lw, z = inferlib.update_weights(model.plan, mll)
+        mean, v = _routed_moment_match(model.plan, mu, var, lw, ti, tm, T_TEST)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        outs[name] = dict(z=float(z), preds={T_TEST: (mean, v)})
+    errs = slice_errors(outs["sharded"], ref, sizes=(T_TEST,))
+    _gate("sharded streamed predict f32 vs f64", {
+        k: errs[k] / SLICE_TOL[k] for k in SLICE_TOL}, 1.0)
+    return dict(seconds={k: min(v) for k, v in times.items()}, runs=times,
+                errors_f32_vs_f64=errs,
+                sharded_vs_local=_f64_errors(outs["sharded"], outs["local"]))
+
+
+def _mesh_train(mesh):
+    """The sharded training gradient at N=20k (float32, per bucket and
+    leaf chunk on each rank, one psum) against the unsharded float64
+    gradient: mll within 1e-3, gradient within 1e-2 relative in norm (phase
+    11's gates); no kernel launches; seconds against the unsharded float32
+    gradient's."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.parallel.mesh import (
+        make_sharded_value_and_grad_bucketed)
+    from deepstructuredmixtures_tpu_torch.train import _train_vg
+
+    m32, m64 = _train_model(20_000, torch.float32), _train_model(20_000,
+                                                                 torch.float64)
+    vg = make_sharded_value_and_grad_bucketed(
+        m32.layout, m32.plan, m32.bucket_batches, m32.bucket_spec.leaf_ids,
+        mesh)
+    out = {}
+    for name, fn, theta in (("sharded", vg, m32.theta),
+                            ("local", _train_vg(m32), m32.theta),
+                            ("float64", _train_vg(m64), m64.theta)):
+        reset_launches()
+        runs = []
+        for _ in range(2):  # cold, warm
+            t0 = time.perf_counter()
+            v, g = fn(theta)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        if launches() != (0, 0):
+            raise AssertionError(f"the {name} training gradient launched "
+                                 f"{launches()}")
+        out[name] = dict(mll=float(v), grad=g.double().cpu().numpy(), s=runs)
+    mll_rel = abs(out["sharded"]["mll"] - out["float64"]["mll"]) / abs(
+        out["float64"]["mll"])
+    grad_rel = _rel(out["sharded"]["grad"], out["float64"]["grad"])
+    if not (mll_rel <= SLICE_TOL["evidence_rel"] and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"sharded gradient f32 vs f64: mll {mll_rel}, "
+                             f"grad {grad_rel}")
+    return dict(seconds={k: v["s"] for k, v in out.items()},
+                mll_f32_rel_vs_f64=mll_rel, grad_f32_rel_vs_f64=grad_rel)
+
+
+def _mesh_gp(mesh, xt):
+    """``GaussianProcess.fit(mesh=)`` + ``predict`` at N=8192 in float32
+    and float64 against the unsharded float64 GP: float32 within the float32
+    bounds, float64 within 1e-8; fit and predict seconds (min of 3) beside
+    the unsharded ones. Returns the line and the float64 mesh run."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(GP_N)
+    runs, times = {}, {}
+    for name, dtype, mesh_ in (("unsharded_float64", torch.float64, None),
+                               ("unsharded_float32", torch.float32, None),
+                               ("mesh_float64", torch.float64, mesh),
+                               ("mesh_float32", torch.float32, mesh)):
+        gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0),
+                                  log_noise=-1.0, device="cuda", dtype=dtype)
+        fit_s, _ = _min_of_3(_timed(lambda: gp.fit(mesh=mesh_,
+                                                   block=MESH_BLOCK)))
+        predict_s, _ = _min_of_3(_timed(lambda: gp.predict(xt)))
+        mean, var = gp.predict(xt)
+        runs[name] = dict(z=gp.mll(), preds={T_TEST: (mean.double(),
+                                                      var.double())})
+        times[name] = dict(fit_s=fit_s, predict_t2000_s=predict_s)
+    base = runs["unsharded_float64"]
+    errs32 = slice_errors(runs["mesh_float32"], base, sizes=(T_TEST,))
+    _gate("GP mesh f32 vs f64", {k: errs32[k] / SLICE_TOL[k]
+                                 for k in SLICE_TOL}, 1.0)
+    errs64 = _f64_errors(runs["mesh_float64"], base)
+    _gate("GP mesh f64 vs unsharded", errs64, MESH_F64_TOL)
+    return dict(n=GP_N, times=times, errors_f32_vs_f64=errs32,
+                errors_f64_vs_unsharded=errs64), runs["mesh_float64"]
+
+
+def _mesh_train_refs(mesh):
+    """``train(mesh=)`` (Adam lr 1e-2, 2 iterations) and ``finetune(mesh=)``
+    (1 iteration, all 144 candidates) at N=4k in float64: the one-rank
+    references of the two-rank run, with their seconds."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    adam = lambda params: torch.optim.Adam(params, lr=TRAIN_LR)  # noqa: E731
+    m = _full_model(MESH_TRAIN_N, torch.float64)
+    t0 = time.perf_counter()
+    hist = tdsm.train(m, adam, iterations=MESH_TRAIN_ITERS, lam=1e-9,
+                      randinit=False, progress=False, mesh=mesh)
+    train_s = time.perf_counter() - t0
+    theta = m.theta.cpu().numpy()
+    m = _full_model(MESH_TRAIN_N, torch.float64)
+    t0 = time.perf_counter()
+    ft = tdsm.finetune(m, adam, iterations=1, lam=1e-9, progress=False,
+                       mesh=mesh)
+    finetune_s = time.perf_counter() - t0
+    return dict(train_hist=hist, train_theta=theta, finetune_hist=ft,
+                finetune_theta=m.theta.cpu().numpy()), dict(
+                    train_s=train_s, finetune_s=finetune_s)
+
+
+def _mesh_two_rank_runs(mesh, budget20k):
+    """The runs of the two-rank world, in float64 (also made in the world of
+    one for its references): ``fit(mesh=)`` at N=20k with the largest
+    bucket routed, routed predict at T=2000, the N=8192 GP, and
+    ``train``/``finetune`` at N=4k. Returns flat arrays and seconds."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    out, secs = {}, {}
+    model = _train_model(20_000, torch.float64)
+    run = _mesh_slice(mesh, model, budget20k, xt)
+    for dev in ([model.theta] + [g[0] for g in model._giant.values()]):
+        if dev.device != torch.device("cuda", 0):
+            raise AssertionError(f"a tensor left cuda:0: {dev.device}")
+    out.update(n20k_z=run["z"], n20k_mean=run["preds"][T_TEST][0].cpu().numpy(),
+               n20k_var=run["preds"][T_TEST][1].cpu().numpy(),
+               n20k_mean_only=run["mean_only"].cpu().numpy())
+    secs.update(n20k_fit_s=run["fit_s"], n20k_predict_s=run["predict_s"])
+    del model
+    x, y = make_data(GP_N)
+    gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0),
+                              log_noise=-1.0, device="cuda",
+                              dtype=torch.float64)
+    t0 = time.perf_counter()
+    gp.fit(mesh=mesh, block=MESH_BLOCK)
+    mean, var = gp.predict(xt)
+    torch.cuda.synchronize()
+    secs["gp_fit_predict_s"] = time.perf_counter() - t0
+    out.update(gp_mll=gp.mll(), gp_mean=mean.cpu().numpy(),
+               gp_var=var.cpu().numpy())
+    refs, s = _mesh_train_refs(mesh)
+    out.update(refs)
+    secs.update(s)
+    return {k: np.asarray(v) for k, v in out.items()}, secs
+
+
+def _mesh_rank(rank, world, store, refs_path, out_path):
+    """A rank of the two-rank gloo world on the one card (``cuda:0``): the
+    runs of :func:`_mesh_two_rank_runs`, rank 0 holding them to the world of
+    one's within 1e-8 and writing the errors and seconds to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        from deepstructuredmixtures_tpu_torch import parallel
+
+        mesh = parallel.make_mesh()
+        with np.load(refs_path) as z:
+            ref = {k: z[k] for k in z.files}
+        t0 = time.perf_counter()
+        got, secs = _mesh_two_rank_runs(mesh, int(ref["budget20k"]))
+        secs["all_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    errs = {}
+    for k, v in got.items():
+        scale = max(1.0, float(np.abs(ref[k]).max())) if k.endswith(
+            ("_z", "_mll")) else 1.0
+        errs[k] = float(np.abs(v - ref[k]).max()) / scale
+    _gate(f"rank {rank} of {world} vs one rank, float64", errs, MESH_F64_TOL)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"errors_vs_one_rank": errs, "seconds": secs,
+                       "backend": "gloo", "device": "cuda:0",
+                       "device_name": torch.cuda.get_device_name(0)}, f)
+
+
+def phase_mesh(ref20k, ref100k):
+    """Phase 12, multi-device (see the module docstring). ``ref20k`` /
+    ``ref100k``: the float64 slices of phases 4-5 (evidence and T=2000
+    moments). Returns the fused kernel's launches of its N=20k float32 mesh
+    run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from deepstructuredmixtures_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(REPO, "build"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        backend = str(dist.get_backend())
+        # N=100k, float32: the headline model with its largest leaves routed;
+        # the light fit and streamed predict of the same model in turns
+        # (light, mesh, light, mesh; min of 2 each)
+        model = _train_model(100_000, torch.float32)
+        light = {"fit_s": [], "predict_s": []}
+        mesh_runs = []
+        for _ in range(2):
+            light["fit_s"].append(model.fit())
+            t0 = time.perf_counter()
+            model.predict(xt)
+            torch.cuda.synchronize()
+            light["predict_s"].append(time.perf_counter() - t0)
+            mesh_runs.append(_mesh_slice(mesh, model, MESH_GIANT_BYTES, xt))
+        run = mesh_runs[-1]
+        if any(r["launches"] != (0, 0) for r in mesh_runs):
+            raise AssertionError(f"N=100k mesh run launched {run['launches']}")
+        errs = slice_errors(run, ref100k, sizes=(T_TEST,))
+        _gate("N=100k mesh f32 vs f64", {k: errs[k] / SLICE_TOL[k]
+                                          for k in SLICE_TOL}, 1.0)
+        mean_only_err = float((run["mean_only"] - ref100k["preds"][T_TEST][0])
+                              .abs().max())
+        if not (mean_only_err <= SLICE_TOL["mean_abs"]):
+            raise AssertionError(f"N=100k mesh mean-only {mean_only_err}")
+        chol = _mesh_cholesky(mesh, model)
+        model.fit()  # drops the giant leaves' factors
+        streamed = _mesh_streamed(mesh, model, ref100k)
+        if launches() != (0, 0):
+            raise AssertionError(f"N=100k launched {launches()}")
+        del model
+        torch.cuda.empty_cache()
+        say("mesh_n100000", backend=backend, ranks=1,
+            giant_leaf_bytes=MESH_GIANT_BYTES, block=MESH_BLOCK,
+            routed_leaves=run["routed"], routed_n=run["routed_n"],
+            fit_mesh_s=min(r["fit_s"] for r in mesh_runs),
+            predict_mesh_t2000_s=min(r["predict_s"] for r in mesh_runs),
+            mean_only_mesh_s=min(r["mean_only_s"] for r in mesh_runs),
+            fit_light_s=min(light["fit_s"]),
+            predict_streamed_t2000_s=min(light["predict_s"]),
+            runs={"mesh": [{k: r[k] for k in ("fit_s", "predict_s",
+                                              "mean_only_s")}
+                           for r in mesh_runs], "light": light},
+            errors_f32_vs_f64=errs, mean_only_abs_err_vs_f64=mean_only_err,
+            tolerances=SLICE_TOL, launches=run["launches"],
+            sharded_cholesky=chol, sharded_streamed_predict=streamed,
+            card=card_line())
+
+        # N=20k: float32 (the fused kernel on the normal buckets) and
+        # float64 (the gate and the two-rank world's reference)
+        model = _train_model(20_000, torch.float32)
+        nmaxs = sorted(model.bucket_spec.nmaxs)
+        run32 = _mesh_slice(mesh, model, nmaxs[-2] ** 2 * 4, xt)
+        del model
+        if not (run32["launches"][0] > 0 and run32["launches"][1] == 0):
+            raise AssertionError(f"N=20k mesh float32 launched "
+                                 f"{run32['launches']} (fused, blocked)")
+        errs32 = slice_errors(run32, ref20k, sizes=(T_TEST,))
+        _gate("N=20k mesh f32 vs f64", {k: errs32[k] / SLICE_TOL[k]
+                                         for k in SLICE_TOL}, 1.0)
+        budget64 = nmaxs[-2] ** 2 * 8
+        ref_runs, ref_secs = _mesh_two_rank_runs(mesh, budget64)
+        run64 = {"z": float(ref_runs["n20k_z"]), "preds": {T_TEST: (
+            torch.as_tensor(ref_runs["n20k_mean"]),
+            torch.as_tensor(ref_runs["n20k_var"]))}}
+        errs64 = _f64_errors(run64, {"z": ref20k["z"], "preds": {T_TEST: tuple(
+            a.cpu() for a in ref20k["preds"][T_TEST])}})
+        _gate("N=20k mesh f64 vs unsharded", errs64, MESH_F64_TOL)
+        train = _mesh_train(mesh)
+        gp_line, _ = _mesh_gp(mesh, xt)
+        say("mesh_n20000", backend=backend, ranks=1, routed=run32["routed"],
+            routed_n=run32["routed_n"], launches_f32=run32["launches"],
+            fit_mesh_f32_s=run32["fit_s"],
+            predict_mesh_f32_t2000_s=run32["predict_s"],
+            errors_f32_vs_f64=errs32, errors_f64_vs_unsharded=errs64,
+            f64_tol=MESH_F64_TOL, one_rank_f64_s=ref_secs,
+            train_vg_n20000=train, gp=gp_line, card=card_line())
+    finally:
+        dist.destroy_process_group()
+
+    # two gloo ranks on the one card, against the world of one
+    refs_path = os.path.join(tmp, "one_rank.npz")
+    np.savez(refs_path, budget20k=budget64, **ref_runs)
+    out_path = os.path.join(tmp, "two_ranks.json")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _mesh_rank, args=(MESH_RANKS, os.path.join(tmp, "gloo"), refs_path,
+                          out_path),
+        nprocs=MESH_RANKS, join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        two = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    say("mesh_two_ranks", ranks=MESH_RANKS,
+        note="both ranks share cuda:0: the times measure a shared card, "
+             "not scaling", wall_s=spawn_s, **two,
+        f64_tol=MESH_F64_TOL, card=card_line())
+    say("mesh", seconds=time.perf_counter() - t_phase,
+        fused_launches=run32["launches"][0])
+    return run32["launches"][0]
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -1549,8 +2015,10 @@ def main():
     fused_launches = (run20k["fit_launches"] + run20k["predict_launches"]
                       + depth4_launches + refine_fused)
     phase_hybrid_20k(run20k, run20k64)
+    ref20k = _ref(run20k64)
     del run20k, run20k64
     blocked_launches = refine_blocked + phase_hybrid_100k(run100k, run100k64)
+    ref100k = _ref(run100k64)
     del run100k, run100k64
     for n_train, kernel in FULL_STORE_RUNS:
         fused, blocked = phase_full_store(n_train, kernel)
@@ -1560,6 +2028,7 @@ def main():
     train_fused, train_blocked = phase_training()
     fused_launches += train_fused
     blocked_launches += train_blocked
+    fused_launches += phase_mesh(ref20k, ref100k)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [{

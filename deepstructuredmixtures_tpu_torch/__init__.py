@@ -19,8 +19,10 @@ solves, or the PoE fusions), plus the standalone exact
 backward), each with a ``torch.optim`` optimizer factory, ``checkpoint``
 (the JAX package's npz format), ``serve`` (``Predictor``,
 ``MicroBatcher``, HTTP) and the host-side utilities (``introspect``,
-``metrics``, ``datasets``, ``plotting``, ``utils.profiling``). The
-multi-device path is not ported yet. The two factorization kernels, fused
+``metrics``, ``datasets``, ``plotting``, ``utils.profiling``), and the
+multi-device path on ``torch.distributed`` (``parallel``: ``fit(mesh=)``
+with the distributed Cholesky of giant leaves, sharded training and
+fine-tuning). The two factorization kernels, fused
 gram+Cholesky and blocked Cholesky, are hand-written CUDA (``csrc/``),
 built with ``nvcc`` on first use; training differentiates through
 ``torch.linalg`` and refits through the kernels.

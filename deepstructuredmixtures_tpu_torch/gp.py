@@ -1,5 +1,5 @@
 """Standalone exact Gaussian process (counterpart of
-``deepstructuredmixtures_tpu/gp.py``, without the mesh path).
+``deepstructuredmixtures_tpu/gp.py``).
 
 User-facing equivalent of the reference ``GaussianProcess``
 (``src/gaussianprocess.jl``): exact posterior via Cholesky (R&W Alg. 2.1),
@@ -21,10 +21,6 @@ from .kernels import IsoSE, KernelSpec, gram, gram_diag
 from .means import ConstMean, resolve_mean
 
 LOG2PI = float(np.log(2.0 * np.pi))
-
-#: the multi-device option of the JAX package (the GP's and the models'
-#: ``fit(mesh=...)``), which later work brings, with its ROADMAP item
-MESH_TODO = "fit(mesh=...) is not ported yet: ROADMAP Queue 1 item 11"
 
 
 def _unpack(nl: int, theta):
@@ -107,7 +103,10 @@ class GaussianProcess:
         self.theta = torch.as_tensor(
             list(self.kernel.logl) + [self.kernel.logsigma, log_noise],
             dtype=dtype, device=self.device)
-        self._state = None
+        self._state = None  # (factor, mll); row blocks after fit(mesh=...)
+        # after fit(mesh=...): (mesh, axis, block, x, y), x and y padded to
+        # the tiling; a refit reuses it
+        self._mesh = None
         if run_cholesky:
             self.fit()
 
@@ -122,23 +121,56 @@ class GaussianProcess:
         return t[: self.nl], float(t[self.nl]), float(t[self.nl + 1])
 
     def set_params(self, theta):
-        """New hypers drop the cached posterior."""
+        """New hypers drop the cached posterior; the next fit reuses the
+        last fit's configuration, a mesh included (forgetting it would
+        build the whole ``[N, N]`` covariance on one device, which the
+        mesh path exists to avoid)."""
         self.theta = torch.as_tensor(np.array(theta), dtype=self.x.dtype,
                                      device=self.device)
         self._state = None
 
     # -- fitting / inference ----------------------------------------------
-    def fit(self, mesh=None):
-        """≙ ``update_cholesky!`` (``gaussianprocess.jl:87-108``)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
-        self._state = _fit(self.kernel.kind, self.nl, self.theta, self.x,
-                           self.yc)
+    def fit(self, mesh=None, block: int = 256, axis: Optional[str] = None):
+        """≙ ``update_cholesky!`` (``gaussianprocess.jl:87-108``).
+
+        ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) routes the fit
+        through the distributed blocked Cholesky
+        (``parallel.dist_chol``), the covariance row-sharded over the
+        ranks of one mesh axis: the path for one expert whose ``[N, N]``
+        covariance exceeds one device. Every rank calls it with the same
+        data. The inputs are zero-padded to the ``ndev * block`` tiling;
+        prediction then runs distributed too. ``axis``: the mesh axis to
+        shard over, required on a mesh of several axes."""
+        if mesh is None:
+            self._state = _fit(self.kernel.kind, self.nl, self.theta, self.x,
+                               self.yc)
+            self._mesh = None
+            return self
+        from .parallel.comm import resolve
+        from .parallel.dist_chol import sharded_gp_fit
+
+        ax = resolve(mesh, axis, "fit(mesh=...) shards")
+        tile = ax.ndev * block
+        npad = -(-self.n // tile) * tile
+        xp = self.x.new_zeros((npad, self.d))
+        xp[:self.n] = self.x
+        yp = self.yc.new_zeros((npad,))
+        yp[:self.n] = self.yc
+        logl, logsigma, lognoise = _unpack(self.nl, self.theta)
+        _, mll, Lf = sharded_gp_fit(
+            xp, yp, logl, logsigma, lognoise, mesh, axis=ax.name, block=block,
+            valid_n=self.n, kind=self.kernel.kind, return_factor=True)
+        self._state = (Lf, mll)
+        self._mesh = (mesh, ax.name, block, xp, yp)
         return self
 
     def _ensure(self):
         if self._state is None:
-            self.fit()
+            if self._mesh is None:
+                self.fit()
+            else:
+                mesh, axis, block, _, _ = self._mesh
+                self.fit(mesh=mesh, block=block, axis=axis)
         return self._state
 
     def mll(self) -> float:
@@ -148,7 +180,16 @@ class GaussianProcess:
     def grad_mll(self):
         """Exact gradient of the mll with respect to the log-parameter
         vector, a tensor like ``theta`` (autograd through the Cholesky and
-        the solves; replaces ``∇mll!``, ``gaussianprocess.jl:192-217``)."""
+        the solves; replaces ``∇mll!``, ``gaussianprocess.jl:192-217``).
+
+        One device only: it raises on a mesh-fitted GP rather than build
+        the whole ``[N, N]`` covariance on one device."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "hyper-gradients are single-device only; for a mesh-fitted "
+                "GP, train hypers on a subsample (or a single-device-sized "
+                "model) and refit distributed with fit(mesh=...)"
+            )
         theta = self.theta.detach().requires_grad_(True)
         with torch.enable_grad():
             mll = _fit(self.kernel.kind, self.nl, theta, self.x, self.yc)[1]
@@ -159,9 +200,25 @@ class GaussianProcess:
         """Posterior prediction (≙ ``prediction``,
         ``gaussianprocess.jl:110-137``). Returns ``(mu, var)`` or
         ``(mu, Sigma)`` with observation noise on the diagonal, tensors on
-        the GP's device."""
+        the GP's device. After ``fit(mesh=...)`` it runs distributed on the
+        sharded factor (``dist_chol.sharded_gp_predict``), marginal
+        variances only."""
         Lf, _ = self._ensure()
         xt = torch.as_tensor(as_2d(np.asarray(xt)), dtype=self.x.dtype,
                              device=self.device)
+        if self._mesh is not None:
+            if full_cov:
+                raise NotImplementedError(
+                    "full_cov prediction is single-device only; the "
+                    "distributed path returns marginal variances"
+                )
+            from .parallel.dist_chol import sharded_gp_predict
+
+            mesh, axis, block, xp, yp = self._mesh
+            logl, logsigma, lognoise = _unpack(self.nl, self.theta)
+            return sharded_gp_predict(
+                Lf, xp, yp, logl, logsigma, lognoise, xt, mesh, axis=axis,
+                block=block, mean=self.mean_value, valid_n=self.n,
+                kind=self.kernel.kind)
         return _predict(self.kernel.kind, self.nl, full_cov, self.theta,
                         self.x, self.yc, self.mean_value, Lf, xt)

@@ -1,6 +1,5 @@
 """User-facing models and builders (counterpart of
-``deepstructuredmixtures_tpu/models.py``, without training and the mesh
-path).
+``deepstructuredmixtures_tpu/models.py``).
 
 A model holds its host tree, raw data, compiled plan (with the leaf-overlap
 matrix ``D`` unless built with ``overlap=False``), the shared-Cholesky
@@ -16,7 +15,9 @@ flat sum-edge log-weights and what the last fit kept:
   ``cache_alpha=True``, and the hybrid store), for the exact mean-only
   path;
 * the hybrid store's per-bucket factors, ``(Lf, alpha)`` for the buckets
-  the greedy budget chose and ``None`` for the rest.
+  the greedy budget chose and ``None`` for the rest;
+* after ``fit(mesh=...)``, the giant leaves' row-sharded factors
+  (``_giant``), which predict through the distributed solves.
 
 ``V`` is the number of children per sum node and ``K`` the number of
 splits per split node.
@@ -33,9 +34,9 @@ import torch
 from . import fit as fitlib
 from . import infer as inferlib
 from .config import EPS, DSMGPConfig, as_2d, default_dtype
-from .gp import MESH_TODO, GaussianProcess  # GaussianProcess: re-export
+from .gp import GaussianProcess  # re-export
 from .hyper import initial_vector, make_layout, noise_from, unpack
-from .kernels import IsoSE, gram_diag, normalize_kernels
+from .kernels import IsoSE, gram, gram_diag, normalize_kernels
 from .plan import (_round_up, bucket_batches, bucketize, build_schedule,
                    compile_tree)
 from .tree import build_tree, num_mixtures, stats
@@ -75,6 +76,11 @@ class BaseModel:
         self._alpha_cache = None  # per-bucket alpha weights
         self._bucket_factors = None  # per-bucket (Lf, alpha) or None
         self._batch = None  # the monolithic batch, built on first use
+        # after fit(mesh=...): leaf id -> (row block of its factor, alpha,
+        # x and centred y padded to the mesh tiling, n, kernel id)
+        self._giant = None
+        self._giant_cfg = None  # (mesh, axis, block)
+        self._giant_normal = None  # (normal buckets, their leaf ids)
         self.last_fit_diagnostics = {}
         self.bucket_spec = bucketize(plan)
         self.bucket_batches = bucket_batches(plan, self.bucket_spec, X, y,
@@ -174,6 +180,7 @@ class BaseModel:
 
     def fit(self, method: str = "auto", safe: bool = True,
             store: str = "auto", chunk=None, mesh=None,
+            giant_leaf_bytes: int = 4 << 30, block: int = 256, axis=None,
             cache_alpha: bool = True,
             factor_budget: Optional[int] = None) -> float:
         """Refit all leaf posteriors; returns wall-clock seconds like the
@@ -195,9 +202,28 @@ class BaseModel:
         ``'full'`` when its factors fit in 2 GiB, else ``'light'``. The
         shared schedule needs the full store: on the light store it falls
         back to the batched fit with a warning, the hybrid store refuses
-        it. ``chunk`` bounds the leaves factored at once."""
+        it. ``chunk`` bounds the leaves factored at once.
+
+        ``mesh`` (a ``DeviceMesh``; every rank calls ``fit`` alike): leaves
+        whose one covariance exceeds ``giant_leaf_bytes`` fit through the
+        distributed blocked Cholesky (``parallel.dist_chol``), the ``[n,
+        n]`` matrix row-sharded over the mesh ``axis`` (required on a mesh
+        of several axes) in panels of ``block``: experts past one device's
+        memory. The other buckets take the light fit (with the alpha cache
+        under ``cache_alpha``) on every rank; the giant factors stay
+        sharded for prediction. ``last_fit_diagnostics
+        ['distributed_leaves']`` counts the giant leaves."""
         if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+            # the bucketed light fit with giant-leaf routing: it has no
+            # shared schedule and no full store
+            if method not in ("auto", "batched") or store == "full":
+                raise ValueError(
+                    "fit(mesh=...) runs the bucketed light fit with "
+                    "giant-leaf routing; method='shared' and store='full' "
+                    "are not available on this path"
+                )
+            return self._fit_mesh(mesh, giant_leaf_bytes, block, chunk,
+                                  axis=axis, cache_alpha=cache_alpha)
         if method not in ("auto", "batched", "shared"):
             raise ValueError(f"unknown method {method!r}")
         if store not in ("auto", "full", "light", "hybrid"):
@@ -228,7 +254,7 @@ class BaseModel:
                 "needs the full store), using the batched light path")
         # drop what the last fit kept before this one allocates its own
         self._leaf_mll = self._alpha_cache = self._bucket_factors = None
-        self.posterior = None
+        self.posterior = self._giant = None
         t0 = time.perf_counter()
         if store == "hybrid":
             if factor_budget is None:
@@ -261,6 +287,104 @@ class BaseModel:
                     dfb, cfb)
         _sync(self.device)
         return time.perf_counter() - t0
+
+    def _fit_mesh(self, mesh, giant_leaf_bytes: int, block: int, chunk=None,
+                  axis=None, cache_alpha: bool = True) -> float:
+        """The light fit with the leaves of every bucket past
+        ``giant_leaf_bytes`` (``nmax² · itemsize``) routed through
+        ``dist_chol.sharded_gp_fit``, each padded to the ``ndev * block``
+        tiling (see :meth:`fit`)."""
+        from .parallel.comm import resolve
+        from .parallel.dist_chol import sharded_gp_fit
+
+        if self.X is None or self.y is None:
+            raise ValueError(
+                "fit(mesh=...) needs the raw training data; build the "
+                "model through the standard builders"
+            )
+        self._leaf_mll = self._alpha_cache = self._bucket_factors = None
+        self.posterior = self._giant = None
+        t0 = time.perf_counter()
+        ax = resolve(mesh, axis, "fit(mesh=...) shards giant leaves")
+        tile = ax.ndev * block
+        item = self.dtype.itemsize
+        dev = self.device
+        mll = torch.zeros((self.num_leaves,), dtype=self.dtype, device=dev)
+        giant = {}
+        normal_batches, normal_ids = [], []
+        for b, ids in zip(self.bucket_batches, self.bucket_spec.leaf_ids):
+            if b.nmax * b.nmax * item <= giant_leaf_bytes:
+                normal_batches.append(b)
+                normal_ids.append(ids)
+                continue
+            for leaf_id in map(int, ids):
+                obs = self.plan.leaf_obs[leaf_id]
+                n = obs.size
+                npad = _round_up(n, tile)
+                xp = torch.zeros((npad, self.plan.dim), dtype=self.dtype,
+                                 device=dev)
+                xp[:n] = torch.as_tensor(self.X[obs], dtype=self.dtype)
+                yp = torch.zeros((npad,), dtype=self.dtype, device=dev)
+                yp[:n] = torch.as_tensor(
+                    self.y[obs] - self.plan.leaf_mean[leaf_id], dtype=self.dtype)
+                kid = int(self.plan.leaf_kernelid[leaf_id])
+                th = self.theta if self.theta.ndim == 1 else self.theta[leaf_id]
+                logl, logsigma, lognoise = unpack(self.layout, th, kid)
+                alpha, mll[leaf_id], Lf = sharded_gp_fit(
+                    xp, yp, logl, logsigma, lognoise, mesh, axis=ax.name,
+                    block=block, valid_n=n, kind=self.layout.kinds[kid],
+                    return_factor=True)
+                # whole alpha on every rank: the mean-only path's K_nt'α
+                giant[leaf_id] = (Lf, ax.gather_rows(alpha), xp, yp, n, kid)
+        if normal_batches:
+            args = (self.layout, self.theta, normal_batches, normal_ids,
+                    self.num_leaves)
+            if cache_alpha:
+                mll_n, self._alpha_cache = fitlib.bucketed_leaf_alphas(
+                    *args, chunk=chunk)  # in normal-bucket order
+            else:
+                mll_n = fitlib.bucketed_leaf_mlls(*args, chunk=chunk)
+            for ids in normal_ids:
+                idx = fitlib._leaf_index(ids, dev)
+                mll[idx] = mll_n[idx]
+        self._leaf_mll = mll
+        self._giant = giant
+        self._giant_cfg = (mesh, ax.name, block)
+        self._giant_normal = (normal_batches, normal_ids)
+        self.last_fit_diagnostics = {
+            "delete_fallbacks": 0, "continue_fallbacks": 0,
+            "distributed_leaves": len(giant),
+        }
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    def _giant_normal_predict(self, xt, ti=None):
+        """Streamed moments ``(mu, var) [L, T|tmax]`` of the normal buckets
+        after ``fit(mesh=...)``, the giant leaves' rows left 0 / 1 for the
+        caller to fill; ``ti`` routes as in ``fit.bucketed_streamed_predict``."""
+        nb, nids = self._giant_normal
+        if not nb:
+            T = xt.shape[0] if ti is None else ti.shape[1]
+            shape = (self.num_leaves, T)
+            return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                    torch.ones(shape, dtype=self.dtype, device=self.device))
+        mu, var, _ = fitlib.bucketed_streamed_predict(
+            self.layout, self.theta, nb, nids, self.num_leaves, xt, ti)
+        return mu, var
+
+    def _giant_leaf_predict(self, leaf_id: int, xt_leaf):
+        """Distributed prediction of one giant leaf at its (routed) test
+        points (``dist_chol.sharded_gp_predict``)."""
+        from .parallel.dist_chol import sharded_gp_predict
+
+        mesh, axis, block = self._giant_cfg
+        Lf, _, xp, yp, n, kid = self._giant[leaf_id]
+        th = self.theta if self.theta.ndim == 1 else self.theta[leaf_id]
+        logl, logsigma, lognoise = unpack(self.layout, th, kid)
+        return sharded_gp_predict(
+            Lf, xp, yp, logl, logsigma, lognoise, xt_leaf, mesh, axis=axis,
+            block=block, mean=float(self.plan.leaf_mean[leaf_id]), valid_n=n,
+            kind=self.layout.kinds[kid])
 
     def fit_naive(self) -> float:
         """≙ ``fit_naive!`` (``fit.jl:294-304``)."""
@@ -309,11 +433,11 @@ class BaseModel:
 
     def set_params(self, theta):
         """≙ ``setparams!(root, hyp)`` (``optimize.jl:188-198``); drops the
-        fit and both caches."""
+        fit, both caches and the giant leaves' factors."""
         self.theta = torch.as_tensor(np.array(theta), dtype=self.dtype,
                                      device=self.device)
         self._leaf_mll = self._alpha_cache = self._bucket_factors = None
-        self.posterior = None
+        self.posterior = self._giant = None
 
     # -- prediction helpers -----------------------------------------------
     def _as_test(self, xt):
@@ -323,8 +447,14 @@ class BaseModel:
     def _leaf_predict_all(self, xt):
         """Per-leaf moments at shared test points ``(mu, var) [L, T]``:
         from the full or the hybrid store where the last fit kept factors,
-        else streamed."""
+        distributed for the giant leaves of ``fit(mesh=...)``, else
+        streamed."""
         self.leaf_mlls()
+        if self._giant:
+            mu, var = self._giant_normal_predict(xt)
+            for leaf_id in self._giant:
+                mu[leaf_id], var[leaf_id] = self._giant_leaf_predict(leaf_id, xt)
+            return mu, var
         if self.posterior is not None:
             return fitlib.cached_leaf_predict(self.layout, self.theta,
                                               self.batch, self.posterior.chol, xt)
@@ -368,6 +498,11 @@ class DSMGP(BaseModel):
         (``fit.cached_leaf_predict``). ``return_var=False`` returns the
         mean alone.
 
+        After ``fit(mesh=...)`` the normal buckets stream (or, mean only,
+        take their alphas) and the giant leaves predict through the
+        distributed solves (their mean only: ``m + K_nt'α``);
+        ``refine_steps`` raises there.
+
         ``refine_steps > 0``: mixed-precision refinement of the leaf solves
         against true-K float64 residuals (``ops/refine.py``). It always
         takes the streamed path, whatever the store (the mean-only alpha
@@ -382,6 +517,26 @@ class DSMGP(BaseModel):
         xt_d = torch.as_tensor(xt_np, dtype=self.dtype, device=self.device)
         args = (self.layout, self.theta, self.bucket_batches,
                 self.bucket_spec.leaf_ids, self.num_leaves)
+        if self._giant:
+            if refine_steps:
+                raise ValueError(
+                    "refine_steps is not supported after fit(mesh=...) — "
+                    "the distributed giant-leaf solves have no refinement "
+                    "path; refit without a mesh for refined prediction"
+                )
+            if not return_var and self._alpha_cache is not None:
+                mu = self._giant_alpha_mean(xt_d, ti)
+                mean, _ = _routed_moment_match(
+                    self.plan, mu, torch.ones_like(mu), self.logweights, ti,
+                    tm, T)
+                return mean
+            mu, var = self._giant_normal_predict(xt_d, ti)
+            for leaf_id in self._giant:
+                mu[leaf_id], var[leaf_id] = self._giant_leaf_predict(
+                    leaf_id, xt_d[ti[leaf_id]])
+            mean, var = _routed_moment_match(self.plan, mu, var,
+                                             self.logweights, ti, tm, T)
+            return (mean, var) if return_var else mean
         if not return_var and not refine_steps and self._alpha_cache is not None:
             mu = fitlib.bucketed_alpha_mean(*args, self._alpha_cache, xt_d, ti)
             mean, _ = _routed_moment_match(self.plan, mu, torch.ones_like(mu),
@@ -402,6 +557,24 @@ class DSMGP(BaseModel):
         mean, var = _routed_moment_match(self.plan, mu, var, self.logweights,
                                          ti, tm, T)
         return (mean, var) if return_var else mean
+
+
+    def _giant_alpha_mean(self, xt, ti):
+        """Routed means ``[L, tmax]`` after ``fit(mesh=..., cache_alpha=
+        True)``: the normal buckets from their cached alphas
+        (``fit.bucketed_alpha_mean``), the giant leaves from theirs, ``μ = m
+        + K_nt'α`` (``gaussianprocess.jl:118``); no factorization."""
+        nb, nids = self._giant_normal
+        mu = fitlib.bucketed_alpha_mean(self.layout, self.theta, nb, nids,
+                                        self.num_leaves, self._alpha_cache,
+                                        xt, ti)
+        for leaf_id, (_, alpha, xp, _, n, kid) in self._giant.items():
+            th = self.theta if self.theta.ndim == 1 else self.theta[leaf_id]
+            logl, logsigma, _ = unpack(self.layout, th, kid)
+            Knt = gram(self.layout.kinds[kid], logl, logsigma, xp[:n],
+                       xt[ti[leaf_id]])  # [n, tmax]
+            mu[leaf_id] = float(self.plan.leaf_mean[leaf_id]) + Knt.mT @ alpha[:n]
+        return mu
 
 
 class PoE(BaseModel):

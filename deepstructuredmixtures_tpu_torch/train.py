@@ -1,5 +1,5 @@
 """Hyperparameter training and fine-tuning (counterpart of
-``deepstructuredmixtures_tpu/train.py``, without the mesh path).
+``deepstructuredmixtures_tpu/train.py``).
 
 * ``train`` (≙ ``train!``, ``optimisers.jl:4-87``): gradient ascent on the
   root marginal log-likelihood with respect to one tied hyper vector, with
@@ -20,6 +20,12 @@
 writing the negative gradient into ``.grad`` before ``step()``, so any
 descent-convention optimizer works (the JAX package feeds ``-g`` to optax
 the same way).
+
+With ``mesh`` (a ``DeviceMesh``, ``parallel.make_mesh``) every rank runs
+the same call: ``train`` shards the leaves of each size bucket over the
+ranks (``parallel.mesh``), ``finetune`` the candidates and the (candidate,
+leaf) pairs; the gradients are summed over the ranks and the hypers stay
+replicated.
 
 The objective is this module's own leaf mll (:func:`_chunk_leaf_mll`):
 gram, noisy diagonal, a Cholesky whose failure is NaN added out of place,
@@ -44,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from . import fit as fitlib
 from . import infer as inferlib
 from .fit import _noisy_gram
-from .gp import MESH_TODO, _fit
+from .gp import _fit
 from .leafgp import LeafBatch, centered_y, leaf_mll_forward
 from .ops import cholesky as chol
 from .plan import MixtureOverlap, SPNPlan
@@ -260,6 +266,32 @@ def _train_vg(model, chunk: Optional[int] = None):
     return _value_and_grad(make_mll_fn_bucketed(*buckets))
 
 
+def _mesh_vg(model, theta, mesh, chunk):
+    """The gradient route of ``train(mesh=...)``."""
+    from .parallel import mesh as pmesh
+
+    if theta.ndim != 1:
+        raise ValueError(
+            "train(mesh=...) requires tied hypers (theta 1-D); the "
+            "sharded batch is padded past the leaf count, which a "
+            "per-leaf theta matrix cannot follow — train untied "
+            "models on the single-device per-bucket path"
+        )
+    layout, plan = model.layout, model.plan
+    if getattr(model, "bucket_batches", None) is not None:
+        return pmesh.make_sharded_value_and_grad_bucketed(
+            layout, plan, model.bucket_batches, model.bucket_spec.leaf_ids,
+            mesh, chunk=chunk)
+    if chunk is not None:
+        raise ValueError(
+            "train(mesh=...) without bucket batches does not "
+            "chunk (each device holds its shard's covariances at "
+            "once); drop chunk= or drop mesh="
+        )
+    f, _ = pmesh.make_sharded_mll_fn(layout, plan, model.batch, mesh)
+    return _value_and_grad(f)
+
+
 def train(
     model,
     optimizer=None,
@@ -283,9 +315,13 @@ def train(
     :func:`_train_vg`'s (``chunk``: the monolithic batch). A non-finite
     mll ends the run at the hypers that gave it, out of the history; at
     the first iteration it raises. ``progress``: the live display
-    (``None``: on a TTY). ``mesh`` is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    (``None``: on a TTY).
+
+    ``mesh``: every step runs expert-parallel over the mesh's ``'experts'``
+    axis (``parallel.mesh.make_sharded_value_and_grad_bucketed``: each rank
+    streams its leaves of every size bucket, ``chunk`` leaves at a time if
+    given); the same mathematics and history. Tied hypers only; a
+    ``randinit`` start is rank 0's, sent to every rank."""
     optimizer = optimizer or _adam
     P = model.theta.shape[-1]
     if randinit:
@@ -293,8 +329,15 @@ def train(
                                 dtype=model.dtype, device=model.device)
     else:
         theta = model.theta.detach().clone()
+    if mesh is not None:
+        vg = _mesh_vg(model, theta, mesh, chunk)
+        if randinit:  # seed=None draws differently on every rank
+            from .parallel.comm import resolve
+
+            resolve(mesh).broadcast(theta, 0)
+    else:
+        vg = _train_vg(model, chunk)
     theta.requires_grad_(True)
-    vg = _train_vg(model, chunk)
     opt = optimizer([theta])
     hist = np.zeros(iterations)
     c = 0
@@ -342,7 +385,14 @@ def train_gp(
     ``optimisers.jl:89-145``). A NaN mll rolls the hypers back to the last
     iteration's and stops (``optimisers.jl:115-119``); at the first
     iteration it raises. ``optimizer`` as in :func:`train` (default
-    RMSprop, lr 1e-3, decay 0.9). Refits and returns the mll history."""
+    RMSprop, lr 1e-3, decay 0.9). Refits and returns the mll history. One
+    device only: a mesh-fitted GP raises (see ``GaussianProcess.grad_mll``)."""
+    if getattr(gp, "_mesh", None) is not None:
+        raise NotImplementedError(
+            "train_gp is single-device only; a mesh-fitted GP's [N, N] "
+            "covariance cannot be rebuilt on one chip for the gradient — "
+            "train hypers at single-device scale, then fit(mesh=...)"
+        )
     optimizer = optimizer or _rmsprop
     if randinit:
         theta = torch.as_tensor(
@@ -413,8 +463,9 @@ def _pair_mlls(layout, H, batch: LeafBatch, jq, iq, chunk: int):
 
 def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
                               budget: int = 2 << 30, mesh=None,
-                              cand_map: int = 8,
-                              sparse: Optional[bool] = None):
+                              axis: str = "experts", cand_map: int = 8,
+                              sparse: Optional[bool] = None,
+                              pair_map: int = 8):
     """All fine-tune candidates at once: ``(H [C, P], W [C, L]) -> (leaf
     mlls [C, L], grads [C, P])``, where candidate ``j`` puts the hypers
     ``H[j]`` on every leaf and its gradient is the ``W[j]``-weighted one of
@@ -437,9 +488,22 @@ def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
     benchmark tree); otherwise all pairs. ``None`` picks sparse when ``W``
     is under 25% dense. Both give the same gradients.
 
-    ``mesh`` is not ported."""
+    ``mesh``: the candidates of each forward chunk are split over the
+    ranks of the mesh ``axis`` (``cand_map`` rounded to a multiple of the
+    rank count, the candidates padded by repetition to a multiple of it)
+    and each rank's mlls gathered; the pair list is padded to a multiple
+    of ``pair_map`` (rounded likewise) with pairs of zero weight and split
+    over the ranks, whose candidate gradients are summed (one psum).
+    Every rank returns the same result."""
+    ax = None
     if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+        from .parallel.comm import resolve
+
+        ax = resolve(mesh, axis)
+        if cand_map % ax.ndev:
+            cand_map = ax.ndev * max(1, cand_map // ax.ndev)
+        if pair_map % ax.ndev:
+            pair_map = ax.ndev * max(1, pair_map // ax.ndev)
     L = plan.num_leaves
     buckets = [(b, fitlib._leaf_index(ids, b.x.device))
                for b, ids in zip(batches, leaf_ids)]
@@ -468,25 +532,52 @@ def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
             cache[key] = lists
         return cache[key]
 
+    def block_mlls(Hp, b, s, e):
+        """``[e - s, Lb]``: the mlls of the bucket's leaves under the
+        candidates ``s:e``, split over the ranks on a mesh."""
+        Lb, dev = b.num_leaves, Hp.device
+        if ax is not None:
+            k = (e - s) // ax.ndev
+            s, e = s + ax.me * k, s + (ax.me + 1) * k
+        jq = torch.arange(s, e, device=dev).repeat_interleave(Lb)
+        iq = torch.arange(Lb, device=dev).repeat(e - s)
+        chunk = fitlib._bucket_chunk(b.nmax, jq.numel(), b.x.dtype, budget)
+        out = _pair_mlls(layout, Hp, b, jq, iq, chunk).reshape(e - s, Lb)
+        return out if ax is None else ax.gather_rows(out)
+
+    def my_pairs(jj, ii):
+        """The pairs of this rank, and their weights' mask (0 on padding)."""
+        keep = torch.ones_like(jj, dtype=torch.bool)
+        if ax is None:
+            return jj, ii, keep
+        pad = (-jj.numel()) % pair_map
+        jj, ii, keep = (torch.cat([a, a.new_zeros((pad,))])
+                        for a in (jj, ii, keep))
+        q = jj.numel() // ax.ndev
+        sl = slice(ax.me * q, (ax.me + 1) * q)
+        return jj[sl], ii[sl], keep[sl]
+
     def vg(H, W):
         H = H.detach()
         C = H.shape[0]
-        dev = H.device
-        mll = torch.zeros((C, L), dtype=H.dtype, device=dev)
+        Hp = H
+        if ax is not None and C % cand_map:
+            # repeat (not slice): the padding may exceed C (fewer candidates
+            # than ranks)
+            Hp = H[torch.arange(C + (-C) % cand_map, device=H.device) % C]
+        Cp = Hp.shape[0]
+        mll = torch.zeros((Cp, L), dtype=H.dtype, device=H.device)
         with torch.no_grad():
             for b, idx in buckets:
-                Lb = b.num_leaves
-                for s in range(0, C, cand_map):
-                    e = min(s + cand_map, C)
-                    jq = torch.arange(s, e, device=dev).repeat_interleave(Lb)
-                    iq = torch.arange(Lb, device=dev).repeat(e - s)
-                    chunk = fitlib._bucket_chunk(b.nmax, jq.numel(), b.x.dtype,
-                                                 budget)
-                    mll[jq, idx[iq]] = _pair_mlls(layout, H, b, jq, iq, chunk)
+                for s in range(0, Cp, cand_map):
+                    mll[s:s + cand_map, idx] = block_mlls(
+                        Hp, b, s, min(s + cand_map, Cp))
+        mll = mll[:C]
         rw = torch.stack([inferlib.leaf_responsibilities(plan, mll[j])
                           for j in range(C)]).to(H.dtype) * W
         G = torch.zeros_like(H)
-        for (b, idx), (jj, ii) in zip(buckets, pair_lists(W)):
+        for (b, idx), pairs in zip(buckets, pair_lists(W)):
+            jj, ii, keep = my_pairs(*pairs)
             bs = max(1, min(64, (2 << 30)
                             // (6 * b.nmax ** 2 * b.x.dtype.itemsize)))
             for s in range(0, jj.numel(), bs):
@@ -494,10 +585,10 @@ def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
                 Hq = H[j].requires_grad_(True)
                 with torch.enable_grad():
                     lm = _chunk_leaf_mll(layout, Hq, b.take(i))
-                    (g,) = torch.autograd.grad(lm, Hq,
-                                               grad_outputs=rw[j, idx[i]])
+                    (g,) = torch.autograd.grad(
+                        lm, Hq, grad_outputs=rw[j, idx[i]] * keep[s:s + bs])
                 G.index_add_(0, j, g)
-        return mll, G
+        return mll, G if ax is None else ax.psum(G)
 
     return vg
 
@@ -526,6 +617,7 @@ def finetune(
     progress=None,
     bucketed: Optional[bool] = None,
     mesh=None,
+    axis=None,
     sparse: Optional[bool] = None,
     leaves=None,
 ):
@@ -546,9 +638,11 @@ def finetune(
     same engine. ``cand_chunk``: candidates per batched forward (default
     8). ``sparse``: see :func:`make_finetune_vg_bucketed`. ``leaves``: the
     leaf indices to tune (default all; unique ints in ``[0, L)``).
-    ``mesh`` is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+
+    ``mesh``: shard the candidate evaluations over the ranks of one mesh
+    axis (forces the bucketed route; the same history, the candidates
+    being independent). ``axis``: that axis, required on a mesh of several
+    axes."""
     optimizer = optimizer or _adam
     layout, plan = model.layout, model.plan
     L = plan.num_leaves
@@ -577,6 +671,11 @@ def finetune(
     Dd = torch.as_tensor(Dd, dtype=model.dtype, device=model.device)
     cand_t = torch.as_tensor(cand, device=model.device)
 
+    if mesh is not None:
+        from .parallel.comm import resolve
+
+        bucketed = True  # the candidate-sharded route is the bucketed one
+        axis = resolve(mesh, axis, "finetune(mesh=...) shards candidates").name
     if bucketed is None:
         bucketed = _per_bucket(model)
     if bucketed:
@@ -584,6 +683,7 @@ def finetune(
     else:
         batches, leaf_ids = [model.batch], [np.arange(L)]
     vg_all = make_finetune_vg_bucketed(layout, plan, batches, leaf_ids,
+                                       mesh=mesh, axis=axis,
                                        cand_map=cand_chunk or 8, sparse=sparse)
 
     opt = optimizer([H])

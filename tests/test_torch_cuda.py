@@ -254,3 +254,57 @@ def test_cuda_training_gradient_launches_no_fused_kernel(cuda_device):
     (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
     assert abs(v32 - v64) <= 1e-3 * abs(v64)
     assert np.linalg.norm(g32 - g64) <= 1e-2 * np.linalg.norm(g64)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_world_of_one_nccl(cuda_device, tmp_path):
+    """``fit(mesh=...)`` in a world of one rank under NCCL (the backend of a
+    multi-card host, ``all_gather_into_tensor``): the largest bucket's
+    leaves on the distributed Cholesky, the others through the fused
+    kernel in float32; float64 within 1e-8 of the unsharded fit, float32
+    within the float32 bounds of ``chip_smoke.py`` of it."""
+    import torch.distributed as dist
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch import parallel
+
+    rng = np.random.default_rng(7)
+    x = np.sort(rng.uniform(0.0, 1.0, 3000)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, 3000)
+    xt = np.linspace(-0.05, 1.05, 200)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        out = {}
+        for dtype in (torch.float64, torch.float32):
+            m = tdsm.build_dsmgp(x, y, V=3, K=4, M=30,
+                                 kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-1.0,
+                                 seed=0, device=cuda_device, dtype=dtype,
+                                 do_fit=False, overlap=False)
+            nmaxs = sorted(m.bucket_spec.nmaxs)
+            before = fused_chol.LAUNCHES, potrf.LAUNCHES
+            m.fit(mesh=mesh, block=128,
+                  giant_leaf_bytes=nmaxs[-2] ** 2 * dtype.itemsize)
+            z = m.update()
+            mean, var = m.predict(xt)
+            torch.cuda.synchronize()
+            assert m.last_fit_diagnostics["distributed_leaves"] >= 1
+            launched = (fused_chol.LAUNCHES - before[0],
+                        potrf.LAUNCHES - before[1])
+            m.fit(store="light")
+            out[dtype] = dict(z=z, mean=mean.double().cpu().numpy(),
+                              var=var.double().cpu().numpy(),
+                              z1=m.update(), launched=launched)
+            if dtype == torch.float64:
+                mean1, var1 = (a.cpu().numpy() for a in m.predict(xt))
+        r64, r32 = out[torch.float64], out[torch.float32]
+        assert abs(r64["z"] - r64["z1"]) <= 1e-8 * abs(r64["z1"])
+        assert np.abs(r64["mean"] - mean1).max() <= 1e-8
+        assert np.abs(r64["var"] - var1).max() <= 1e-8
+        assert abs(r32["z"] - r64["z1"]) <= 1e-3 * abs(r64["z1"])
+        assert np.abs(r32["mean"] - mean1).max() <= 5e-3
+        assert (np.abs(r32["var"] - var1) / var1).max() <= 1e-3
+        assert r32["launched"][0] > 0 and r32["launched"][1] == 0
+    finally:
+        dist.destroy_process_group()

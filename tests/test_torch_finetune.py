@@ -235,7 +235,7 @@ def test_finetune_leaf_subset():
                          do_fit=False, overlap=False)
     with pytest.raises(ValueError, match="overlap=False"):
         tdsm.finetune(m, iterations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdsm.finetune(tm, mesh=object())
 
 

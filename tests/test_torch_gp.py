@@ -142,15 +142,16 @@ def test_gp_from_jax_arrays_matches_jax():
 
 def test_float32_gp_and_mesh_option():
     """``dtype`` follows the argument (float32 here, as on the card) and
-    its mll stays near the float64 one; ``fit(mesh=...)`` raises, naming
-    its ROADMAP item."""
+    its mll stays near the float64 one; ``fit(mesh=...)`` takes a
+    ``DeviceMesh`` and refuses anything else (``tests/test_torch_mesh.py``
+    runs it on one)."""
     g64 = tdsm.GaussianProcess(X, Y, kernel=tdsm.IsoSE(-1.0, 0.0),
                                log_noise=-1.0, device="cpu")
     g32 = tdsm.GaussianProcess(X, Y, kernel=tdsm.IsoSE(-1.0, 0.0),
                                log_noise=-1.0, device="cpu", dtype=torch.float32)
     assert g32.x.dtype == g32.predict(XT)[0].dtype == torch.float32
     assert abs(g32.mll() - g64.mll()) < 1e-4 * abs(g64.mll())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         g64.fit(mesh=object())
     assert tdsm.GaussianProcess(X, Y, run_cholesky=True, device="cpu")._state
     assert jax.config.jax_enable_x64  # the JAX side runs in float64

@@ -130,8 +130,10 @@ def test_from_jax_arrays_loads_logweights(runs):
     lambda m: tdsm.GaussianProcess(m.X, m.y, device="cpu").fit(mesh=object()),
 ], ids=["mesh", "gp_mesh"])
 def test_later_options_raise(runs, call):
+    """``mesh`` takes a ``DeviceMesh`` and refuses anything else
+    (``tests/test_torch_mesh.py`` runs both on one)."""
     _, tm, _, _ = runs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         call(tm)
 
 
@@ -160,6 +162,19 @@ def test_port_never_imports_jax():
         "t.finetune(m, iterations=1); m.predict(np.linspace(0, 1, 9))\n"
         "t.train_gp(t.GaussianProcess(x, y, device='cpu'), iterations=2,"
         " randinit=False)\n"
+        "import os, tempfile, torch.distributed as dist\n"
+        "from deepstructuredmixtures_tpu_torch import parallel\n"
+        "from deepstructuredmixtures_tpu_torch.parallel import dryrun\n"
+        "store = os.path.join(tempfile.mkdtemp(), 'store')\n"
+        "dist.init_process_group('gloo', init_method='file://' + store,"
+        " rank=0, world_size=1)\n"
+        "mesh = parallel.make_mesh()\n"
+        "m = t.build_dsmgp(x, y, M=20, device='cpu', seed=1, do_fit=False)\n"
+        "m.fit(mesh=mesh, giant_leaf_bytes=1, block=64); m.update()\n"
+        "assert m.last_fit_diagnostics['distributed_leaves'] == m.num_leaves\n"
+        "m.predict(np.linspace(0, 1, 9))\n"
+        "t.GaussianProcess(x, y, device='cpu').fit(mesh=mesh).predict(x[:5])\n"
+        "dist.destroy_process_group()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('deepstructuredmixtures_tpu.')"
         " or k == 'deepstructuredmixtures_tpu']\n"

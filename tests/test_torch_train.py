@@ -289,8 +289,8 @@ def test_train_chunked_route_and_poe():
 
 def test_train_non_finite_first_iteration_raises():
     """A NaN log noise makes the first mll non-finite: ``train`` raises and
-    leaves the hypers as they were; so does ``train_gp``. ``mesh=`` is not
-    ported."""
+    leaves the hypers as they were; so does ``train_gp``. ``mesh=`` refuses
+    anything but a ``DeviceMesh``."""
     _, tm = _pair(V=2, K=2, seed=1)
     theta0 = np.array([0.0, 0.0, np.nan])
     tm.set_params(theta0)
@@ -301,7 +301,7 @@ def test_train_non_finite_first_iteration_raises():
     gp.set_params(theta0)
     with pytest.raises(RuntimeError, match="first iteration"):
         tdsm.train_gp(gp, iterations=3, randinit=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdsm.train(tm, mesh=object())
 
 

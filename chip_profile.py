@@ -3,6 +3,7 @@
 
     python3 chip_profile.py [--n 100000] [--depth D] [--refine-steps K]
                             [--float64] [--train] [--mesh]
+                            [--family poe|mixture|config5]
 
 Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
 IsoSE(0, 0), log noise -1, seed 0, float32) on ``--n`` points, fits it once
@@ -25,6 +26,13 @@ With ``--mesh``: one ``fit(mesh=...)`` of the model in a world of one rank
 under NCCL, with ``chip_smoke.py``'s giant-leaf budget and panel (the
 leaves above the budget on the distributed Cholesky, the rest the light
 fit), run once to warm up and once under the profiler.
+
+With ``--family``: one warm call of another model family's pipeline, as
+``chip_smoke.py`` builds it: ``poe`` (phase 13: ``fit_naive`` → fused
+``predict`` at T=2000 of ``build_poe``, 2,048 experts at N=100k),
+``mixture`` (phase 14: the streamed ``fit`` → ``update`` → routed
+``predict`` of the IsoSE / ArdSE / IsoLinear mixture) or ``config5``
+(phase 15: the same pipeline on the 4-D ArdSE model after its warm start).
 
 For each profiled call, one JSON line: the wall-clock, the device time
 summed over all kernels, split by what the kernels do (the fused
@@ -91,10 +99,11 @@ def profile(label, fn, top=12, quiet=False):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device kernels only: not the operators around them, and not the
-    # runtime's "Command Buffer Full" (the host waiting to enqueue)
+    # device kernels only: not the operators around them, not the runtime
+    # calls (cudaLaunchKernel, ...) the trace also gives a device time, and
+    # not the runtime's "Command Buffer Full" (the host waiting to enqueue)
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if _device_us(e) > 0 and not e.key.startswith("aten::")
+            if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))
             and e.key != "Command Buffer Full"]
     rows.sort(key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
@@ -157,6 +166,35 @@ def profile_mesh_fit(model, card, n):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def profile_family(family, card, n):
+    """``--family``: see the module docstring."""
+    import torch
+
+    import chip_smoke as cs
+
+    xt = np.linspace(-0.05, 1.05, cs.T_TEST).reshape(-1, 1)
+    if family == "poe":
+        x, y = cs.make_data(n)
+        model = cs.poe_model("poe", x, y, torch.float32)
+        run = cs.poe_pipeline(model, xt)
+    elif family == "mixture":
+        model = cs.mixture_model(n, torch.float32)
+        run = cs.light_pipeline(model, xt)
+    else:
+        x, y, idx, xt = cs.config5_data(n)
+        model = cs.config5_model(x, y, torch.float32)
+        msub, _ = cs.config5_warm_start(x, y, idx, torch.float32)
+        model.set_params(msub.get_params())
+        del msub
+        run = cs.light_pipeline(model, xt)
+    run()  # builds the kernels, warms the allocator
+    print(json.dumps({"card": card, "family": family, "n": n,
+                      "leaves": model.num_leaves,
+                      "nmax": sorted(set(model.bucket_spec.nmaxs)),
+                      "plan_nmax": model.plan.nmax}), flush=True)
+    profile(f"{family}_n{n}", run)
+
+
 def main():
     import torch
 
@@ -174,6 +212,8 @@ def main():
                     help="profile one training gradient instead")
     ap.add_argument("--mesh", action="store_true",
                     help="profile one fit(mesh=...) in a world of one rank")
+    ap.add_argument("--family", choices=("poe", "mixture", "config5"),
+                    help="profile one warm call of that family's pipeline")
     args = ap.parse_args()
     streamed = args.depth is not None or args.refine_steps or args.float64
     depth = args.depth or 2
@@ -182,6 +222,9 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.family:
+        profile_family(args.family, card, args.n)
+        return
     rng = np.random.default_rng(0)
     x = np.sort(rng.uniform(0.0, 1.0, args.n)).reshape(-1, 1)
     y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, args.n)

@@ -13,15 +13,16 @@ non-zero; no phase catches its own failure or falls back to the CPU):
 2. the fused gram+Cholesky kernel against its plain PyTorch version in
    float32 and float64 on the card, at the bucket shapes of the fit paths
    (the N=20k tree's three buckets, the domain's edges, the leaf chunks of
-   the depth-4 tree at N=100k), with tied and per-leaf hypers; padding
+   the depth-4 tree at N=100k, the full store's and the PoE family's
+   monolithic batches), with tied and per-leaf hypers; padding
    contract checked exactly, the error within 5e-4 and 4x the plain
    version's; kernel, plain version and ``cholesky_ex`` on the ready gram
    (the factor alone, a yardstick) timed with CUDA events;
 3. the blocked Cholesky kernel against its plain version, against
    ``torch.linalg.cholesky_ex`` in float32 and against float64 on the
-   card, at the N=100k headline's G=1 shapes and the ragged batched
-   shapes of the hybrid fit (the streamed path chunks its buckets by the
-   same rule, so it has no other shapes); upper-triangle and padding
+   card, at the N=100k headline's G=1 shapes, the ragged batched shapes
+   of the hybrid fit and the kernel-mixture model's (the streamed path
+   chunks its buckets by the same rule); upper-triangle and padding
    contract checked exactly; the three timed with CUDA events, the
    kernel in place on a fresh copy whose own time (``copy_ms``) is
    subtracted; no kernel time may stand below its bound;
@@ -111,7 +112,36 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    repeat the float64 runs (N=20k fit and predict, the GP, 2 iterations of
    ``train(mesh=)`` and 1 of ``finetune(mesh=)`` at N=4,000) and are held
    to the world of one within 1e-8; a rank that fails fails the script;
-13. a JSON line of the kernels, the card's name and power limit, and last
+13. the PoE family at N=100,000 (``bench.py`` ``run_poe``): ``build_poe``,
+   ``build_poe(generalized=True)`` and ``build_bcm`` (K=4, depth 2, 2,048
+   experts of 48-50 points, the monolithic batch at nmax 128), each
+   ``fit_naive`` (one fused launch per leaf chunk, never the blocked
+   kernel) → fused ``predict`` at T=2000; float32 against float64 on the
+   card; four sampled leaves' mll and moments at every test point against
+   a float64 NumPy oracle; the fusion against its float64 replica on the
+   port's own leaf moments (1e-10 / 1e-8); warm seconds (min of 3), peak
+   memory and the PoE pipeline's device time by kernel group;
+14. kernel-mixture leaves (``bench.py`` ``run_mixture``: IsoSE, ArdSE and
+   IsoLinear, 144 leaves each): at N=100,000 the streamed fit → update →
+   routed predict (no bucket in the fused kernel's domain; the blocked
+   kernel factors every bucket, with float64 solves, ``fit._kept_recipe``)
+   in float32 against float64, per kind three small leaves and the largest
+   of at most 6,000 points against the oracle; at N=20,000 the hybrid store
+   (the blocked kernel on every bucket above nmax 1024, the fused one
+   never) against float64, three tied Adam steps through
+   ``make_value_and_grad_bucketed`` (the mll ascends, no launch; the first
+   gradient in float32 against float64) and one ``finetune`` iteration over
+   all 432 candidates through the sparse ``MixtureOverlap`` pair list;
+15. BASELINE config 5 at N=100,000 (``bench.py`` ``run_config5``, 4-D
+   data, additive ArdSE): the warm start (``train``, 15 Adam iterations
+   on a 4,000-point V=2 K=3 model, the hypers carried by
+   ``set_params(get_params())``), the light fit → update → routed predict
+   (the blocked kernel on every bucket) against float64 and the three
+   smallest leaves against the oracle, then one bucketed ``finetune``
+   iteration of ``CONFIG5_FT_CANDIDATES`` leaves and predict again
+   (finite); ``chip_profile.py --family poe|mixture|config5`` profiles one
+   warm call of each pipeline;
+16. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -133,11 +163,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: bucket shapes (leaves, nmax) of the fused kernel: the three fused
 #: buckets of the N=20k headline tree, the domain's edges, the leaf chunks
 #: of the eight fused buckets of the depth-4 tree at N=100k (the largest
-#: chunk ``fit._bucket_chunk`` cuts from each bucket), then the full
-#: store's monolithic batch at N=4k (phase 8)
+#: chunk ``fit._bucket_chunk`` cuts from each bucket), the full store's
+#: monolithic batch at N=4k (phase 8), then the PoE family's at N=100k
+#: (phase 13)
 KERNEL_SHAPES = [(16, 640), (12, 768), (16, 896), (8, 128), (4, 1024),
                  (1662, 128), (2048, 256), (910, 384), (512, 512), (327, 640),
-                 (227, 768), (167, 896), (128, 1024), (144, 768)]
+                 (227, 768), (167, 896), (128, 1024), (144, 768), (2048, 128)]
+#: the valid leaf sizes of a shape whose leaves lie far below its nmax (else
+#: N/2 to N, one leaf full): the PoE family's 48-50 points padded to 128,
+#: timed beside ``cholesky_ex`` at the valid sizes' own padding, 56
+KERNEL_VALID = {(2048, 128): (48, 50, 56)}
 #: the shapes of the fit paths (the kernels line sums them)
 PATH_SHAPES = KERNEL_SHAPES[:3] + KERNEL_SHAPES[5:]
 KERNEL_TOL = 5e-4  # max abs factor error vs float64 (tests/test_pallas_chol.py:71)
@@ -145,10 +180,12 @@ KERNEL_TOL = 5e-4  # max abs factor error vs float64 (tests/test_pallas_chol.py:
 # input (cuSOLVER's float32 Cholesky of the same gram)
 KERNEL_PLAIN_FACTOR = 4.0
 #: (G, n) of the blocked kernel: the N=100k headline's G=1 shapes, the
-#: ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k), then the
-#: full store's leaf chunk at N=10k (phase 8)
+#: ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k), the
+#: full store's leaf chunk at N=10k (phase 8), then the kernel-mixture
+#: model's: the largest and the most populous chunk of its N=20k hybrid fit
+#: and its largest streamed leaf at N=100k (phase 14)
 POTRF_SHAPES = [(1, 4576), (1, 8296), (1, 16232), (13, 3176), (17, 1040),
-                (5, 2224), (48, 1664)]
+                (5, 2224), (48, 1664), (6, 3024), (63, 1048), (1, 14928)]
 # max abs factor error vs float64: the bound of tests/test_pallas_potrf.py:43,
 # or 4x cholesky_ex's own float32 error on the same input where that is
 # larger (float32 error grows with the condition number at n ~ 16k)
@@ -271,8 +308,10 @@ def _kernel_inputs(L, N, tied, seed):
     import torch
 
     rng = np.random.default_rng(seed)
-    n = rng.integers(N // 2, N + 1, L).astype(np.int32)
-    n[0] = N  # one full leaf: no padding
+    lo, hi, _ = KERNEL_VALID.get((L, N), (N // 2, N, N))
+    n = rng.integers(lo, hi + 1, L).astype(np.int32)
+    if (L, N) not in KERNEL_VALID:
+        n[0] = N  # one full leaf: no padding
     x = np.zeros((L, N, 1), np.float32)
     for l in range(L):
         x[l, : n[l], 0] = np.sort(rng.uniform(0.0, 1.0, n[l]))
@@ -379,6 +418,13 @@ def phase_kernel():
             Kn = masked_gram_noise(gram("iso_se", logl[:, None], logsigma, x, x),
                                    mask, noise, 1e-8)
             chol_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(Kn), reps=reps)
+            extra = {}
+            if (L, N) in KERNEL_VALID:
+                pad = KERNEL_VALID[(L, N)][2]
+                Kv = Kn[:, :pad, :pad].contiguous()
+                extra[f"cholesky_ex_factor_only_at_{pad}_ms"] = cuda_ms(
+                    lambda: torch.linalg.cholesky_ex(Kv), reps=reps)
+                del Kv
             del Kn
             torch.cuda.empty_cache()
             worst = max(worst, errs["max_abs_err_vs_f64"])
@@ -391,8 +437,9 @@ def phase_kernel():
             say("kernel", L=L, N=N, hypers="tied" if tied else "per-leaf",
                 blocks_per_leaf=plan.blocks_per_leaf, grid=plan.grid,
                 blocks_per_sm=per_sm, **errs, kernel_ms=ms, plain_ms=plain_ms,
-                cholesky_ex_factor_only_ms=chol_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_padded_ms=padded_ms, kernel_over_bound=ms / b_ms, card=card)
+                cholesky_ex_factor_only_ms=chol_ms, **extra, bound_ms=b_ms,
+                bound_by=b_by, bound_padded_ms=padded_ms,
+                kernel_over_bound=ms / b_ms, card=card)
     return worst, path_ms, path_plain_ms, path_bound, (
         "operations" if 2 * path_bound_ops >= path_bound else "bytes")
 
@@ -743,23 +790,44 @@ def phase_depth4():
     return got
 
 
-def _expected_launches(model):
-    """``(fused, blocked)`` launches of ``fit(store='hybrid')`` with every
-    bucket cached, and of one refined streamed pass: one per leaf chunk of
-    each bucket, by the fit's own chunk rule."""
+def _launch_shapes(model, streamed=False):
+    """The ``(kernel, (leaves, nmax))`` of each kernel launch in one pass
+    over the size buckets, one per leaf chunk by the fit's own chunk rule:
+    of ``fit(store='hybrid')`` with every bucket cached and of one refined
+    streamed pass (the fused kernel where it applies, else the blocked one
+    above nmax 1024), or with ``streamed`` of the light fit and of an
+    unrefined streamed predict (the blocked kernel only under
+    ``fit._kept_recipe``)."""
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
 
-    fused = blocked = 0
+    out = []
     for b in model.bucket_batches:
-        chunks = math.ceil(b.num_leaves / fitlib._bucket_chunk(
-            b.nmax, b.num_leaves, b.x.dtype))
         if fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
                                 model.device):
-            fused += chunks
-        elif potrf.supported(b.nmax, b.x.dtype, model.device):
-            blocked += chunks
-    return fused, blocked
+            kernel = "fused"
+        elif (fitlib._kept_recipe(model.layout, b) if streamed
+              else potrf.supported(b.nmax, b.x.dtype, model.device)):
+            kernel = "blocked"
+        else:
+            continue
+        c = fitlib._bucket_chunk(b.nmax, b.num_leaves, b.x.dtype)
+        out += [(kernel, (min(c, b.num_leaves - s), b.nmax))
+                for s in range(0, b.num_leaves, c)]
+    return out
+
+
+def _expected_launches(model, streamed=False):
+    """``(fused, blocked)`` launches of the pass of :func:`_launch_shapes`."""
+    kernels = [k for k, _ in _launch_shapes(model, streamed)]
+    return kernels.count("fused"), kernels.count("blocked")
+
+
+def _blocked_shapes(model, streamed=True):
+    """The distinct ``(leaves, nmax)`` the blocked kernel factors in the
+    pass of :func:`_launch_shapes`."""
+    return sorted({s for k, s in _launch_shapes(model, streamed)
+                   if k == "blocked"})
 
 
 def _hybrid_fit(model):
@@ -1997,6 +2065,735 @@ def phase_mesh(ref20k, ref100k):
     return run32["launches"][0]
 
 
+# ---------------------------------------------------------------------------
+# The other model families (phases 13-15): the PoE fusions, kernel-mixture
+# leaves and BASELINE config 5, each at the benchmark's widths
+# ---------------------------------------------------------------------------
+
+#: phase 13's training points (``bench.py:1065`` ``run_poe``); its sampled
+#: leaves against the float64 NumPy oracle (``bench.py:1039-1063``): leaf
+#: mll relative to max(1, |mll|), mean absolute, variance relative; the
+#: fusion replica on the port's own leaf moments (``bench.py:1136-1170``)
+POE_N = 100_000
+ORACLE_TOL = {"mll_rel": 1e-3, "mean_abs": 5e-3, "var_rel": 1e-3}
+FUSION_TOL = {"mean_abs": 1e-10, "var_rel": 1e-8}
+#: phase 14 (``bench.py:891`` ``run_mixture``): the leaves' kernels, the
+#: streamed run's and the hybrid and training run's sizes, the tied steps
+#: and their learning rate, the largest leaf the oracle factors
+MIXTURE_N, MIXTURE_HYBRID_N = 100_000, 20_000
+MIXTURE_STEPS, MIXTURE_LR = 3, 1e-2
+ORACLE_MAX_LEAF = 6000
+#: phase 15, BASELINE config 5 (``bench.py:580`` ``run_config5``): points,
+#: dimensions, the warm start's subsample, iterations and learning rate,
+#: and the finetune's learning rate
+CONFIG5_N, CONFIG5_D, CONFIG5_SUB = 100_000, 4, 4000
+CONFIG5_WARM_ITERS, CONFIG5_WARM_LR, CONFIG5_FT_LR = 15, 5e-2, 1e-2
+#: the fine-tune's candidates, spread evenly over the leaves in size order
+#: (None: every leaf). Every leaf is a candidate in ``bench.py``; on an
+#: H100 four candidates' iteration took 21.8 s: a full-tree forward of
+#: about 1.6 s each and about 71 ms for each of their 218 (candidate, leaf)
+#: pairs' backward, so all 144 candidates (7,176 pairs) would take about
+#: 12 minutes
+CONFIG5_FT_CANDIDATES = 4
+
+
+def np_gram(kind, logl, logsigma, x1, x2):
+    """Float64 NumPy gram of one kernel kind (``bench.py``
+    ``_np_gram_general``, the semantics of ``kernels.gram``)."""
+    logl = np.atleast_1d(logl)
+    if kind == "iso_se":
+        d2 = ((x1[:, None, :] - x2[None, :, :]) ** 2).sum(-1)
+        return np.exp(2 * logsigma) * np.exp(-0.5 * d2 * np.exp(-2 * logl[0]))
+    if kind == "ard_se":
+        acc = 0.0
+        for k in range(x1.shape[1]):
+            dk = (x1[:, k, None] - x2[None, :, k]) ** 2
+            acc = acc + np.exp(-0.5 * dk * np.exp(-2.0 * logl[k]))
+        return np.exp(2 * logsigma) * acc
+    if kind == "iso_linear":
+        return (x1 @ x2.T) * np.exp(-2 * logl[0])
+    if kind == "ard_linear":
+        return (x1 * np.exp(-2 * logl)) @ x2.T
+    raise ValueError(kind)
+
+
+def np_gram_diag(kind, logl, logsigma, x):
+    """Float64 NumPy ``k(x_t, x_t)`` (``kernels.gram_diag``)."""
+    logl = np.atleast_1d(logl)
+    if kind == "iso_linear":
+        return (x * x).sum(1) * np.exp(-2 * logl[0])
+    if kind == "ard_linear":
+        return (x * x * np.exp(-2 * logl)).sum(1)
+    terms = logl.size if kind == "ard_se" else 1
+    return np.full(x.shape[0], terms * np.exp(2 * logsigma))
+
+
+def oracle_leaf(X, y, plan, layout, theta, leaf, xt=None):
+    """The float64 NumPy GP of ``leaf`` under the tied hyper vector
+    ``theta``, as ``bench.py`` gates the chip (``_cpu_leaf_mll_general``,
+    ``_cpu_leaf_moments_f64``): its mll and, with ``xt``, its predictive
+    mean and variance (noise included) at every test point."""
+    import scipy.linalg as sla
+
+    kid = int(plan.leaf_kernelid[leaf])
+    kind = layout.kinds[kid]
+    off, nl = layout.blocks[kid]
+    theta = np.asarray(theta, np.float64)
+    logl, logsigma, lognoise = theta[off:off + nl], theta[off + nl], theta[off + nl + 1]
+    obs = plan.leaf_obs[leaf]
+    xl = X[obs]
+    yl = y[obs] - plan.leaf_mean[leaf]
+    K = np_gram(kind, logl, logsigma, xl, xl)
+    noise = np.exp(2 * lognoise)
+    K[np.diag_indices_from(K)] += noise + 1e-8  # the port's EPS
+    Lf = np.linalg.cholesky(K)
+    alpha = sla.cho_solve((Lf, True), yl)
+    mll = -0.5 * (yl @ alpha + 2 * np.log(np.diag(Lf)).sum()
+                  + len(obs) * np.log(2 * np.pi))
+    if xt is None:
+        return mll
+    Knt = np_gram(kind, logl, logsigma, xl, xt)
+    mu = plan.leaf_mean[leaf] + Knt.T @ alpha
+    V = sla.solve_triangular(Lf, Knt, lower=True)
+    var = np_gram_diag(kind, logl, logsigma, xt) - (V * V).sum(0) + noise
+    return mll, mu, var
+
+
+def fusion_replica(name, mu, var, root_child_id, prior=None):
+    """Float64 NumPy replica of the PoE (``poe``), generalized PoE
+    (``gpoe``, β = 1/M over the M root children) and rBCM (``rbcm``, with
+    the prior variance ``prior [T]``) fusions of per-leaf moments ``mu,
+    var [L, T]`` (``bench.py:1136-1170``). Returns ``(mean [T], var
+    [T])``."""
+    t_leaf = 1.0 / np.asarray(var, np.float64)
+    mu = np.asarray(mu, np.float64)
+    if name == "poe":
+        tsum = t_leaf.sum(0)
+        return (t_leaf * mu).sum(0) / tsum, 1.0 / tsum
+    gid = np.asarray(root_child_id)
+    shape = (int(gid.max()) + 1, mu.shape[1])
+    tw, mw = np.zeros(shape), np.zeros(shape)
+    np.add.at(tw, gid, t_leaf)
+    np.add.at(mw, gid, t_leaf * mu)
+    mu_c, t_c = mw / tw, tw
+    if name == "gpoe":
+        beta = 1.0 / shape[0]
+        tsum = (beta * t_c).sum(0)
+        return (beta * t_c * mu_c).sum(0) / tsum, 1.0 / tsum
+    beta = 0.5 * (np.log(prior)[None] - np.log(1.0 / t_c))
+    C = 1.0 / prior + (beta * t_c - beta / prior[None]).sum(0)
+    return (mu_c * beta * t_c).sum(0) / C, 1.0 / C
+
+
+def _oracle_picks(sizes, leaves=None, small=3, largest_below=None):
+    """Leaf indices for the oracle among ``leaves`` (default all): the
+    ``small`` smallest, then the median and the largest, or with
+    ``largest_below`` the largest of at most that many points."""
+    leaves = np.arange(sizes.size) if leaves is None else np.asarray(leaves)
+    order = leaves[np.argsort(sizes[leaves], kind="stable")]
+    picks = list(order[:small])
+    if largest_below is None:
+        picks += [order[len(order) // 2], order[-1]]
+    else:
+        fit = order[sizes[order] <= largest_below]
+        picks += list(fit[-1:])
+    return [int(p) for p in dict.fromkeys(int(p) for p in picks)]
+
+
+def _moment_errors(mean, var, mean64, var64):
+    """Max abs mean and max relative variance errors (float64 tensors or
+    arrays)."""
+    mean, var, mean64, var64 = (np.asarray(a.cpu() if hasattr(a, "cpu") else a,
+                                           np.float64)
+                                for a in (mean, var, mean64, var64))
+    return {"mean_abs": float(np.max(np.abs(mean - mean64))),
+            "var_rel": float(np.max(np.abs(var - var64) / np.abs(var64)))}
+
+
+def _finite_moments(name, mean, var, T):
+    import torch
+
+    if mean.shape != (T,) or var.shape != (T,):
+        raise AssertionError(f"{name}: moments of shape {mean.shape}, {var.shape}")
+    if not (torch.isfinite(mean).all() and torch.isfinite(var).all()
+            and (var > 0).all()):
+        raise AssertionError(f"{name}: non-finite or non-positive moments")
+
+
+def poe_model(kind, x, y, dtype, device="cuda"):
+    """``build_poe`` (``generalized`` for ``gpoe``) or ``build_bcm`` as
+    ``bench.py`` ``run_poe`` builds them: K=4, depth 2, M=30, IsoSE(0, 0),
+    log noise -1, seed 0."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    kw = dict(K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-1.0, seed=0,
+              device=device, dtype=dtype, do_fit=False)
+    if kind == "rbcm":
+        return tdsm.build_bcm(x, y, **kw)
+    return tdsm.build_poe(x, y, generalized=kind == "gpoe", **kw)
+
+
+def poe_pipeline(model, xt):
+    """``fit_naive`` → fused ``predict`` at ``xt``, synchronized."""
+    import torch
+
+    def run():
+        model.fit_naive()
+        out = model.predict(xt)
+        torch.cuda.synchronize()
+        return out
+
+    return run
+
+
+def _rbcm_prior(model, T):
+    """The rBCM prior variance as the model takes it: leaf 0's kernel,
+    ``k(x, x) + noise`` (float64, host)."""
+    kid = int(model.plan.leaf_kernelid[0])
+    off, nl = model.layout.blocks[kid]
+    th = model.theta.double().cpu().numpy()
+    th = th if th.ndim == 1 else th[0]
+    return (np_gram_diag(model.layout.kinds[kid], th[off:off + nl], th[off + nl],
+                         np.zeros((T, model.plan.dim)))
+            + np.exp(2 * th[off + nl + 1]))
+
+
+def phase_poe():
+    """Phase 13, the PoE family (see the module docstring). Returns the
+    fused kernel's launches of the three counted runs."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+    t_phase = time.perf_counter()
+    n_train = POE_N
+    x, y = make_data(n_train)
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    fused_total = 0
+    for kind in ("poe", "gpoe", "rbcm"):
+        t0 = time.perf_counter()
+        model = poe_model(kind, x, y, torch.float32)
+        build_s = time.perf_counter() - t0
+        L, nmax = model.num_leaves, model.plan.nmax
+        chunks = math.ceil(L / fitlib.default_chunk(nmax, model.dtype))
+        if not fused_chol.supported(nmax, model.dtype, model.layout.kinds,
+                                    model.device):
+            raise AssertionError(f"{kind}: nmax {nmax} outside the fused domain")
+        expected = (chunks, 0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        cold_fit_s = model.fit_naive()
+        fit_launches = launches()
+        t0 = time.perf_counter()
+        mean, var = model.predict(xt)
+        torch.cuda.synchronize()
+        cold_predict_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if fit_launches != expected or launches() != expected:
+            raise AssertionError(f"{kind}: launches {fit_launches} in the fit and "
+                                 f"{launches()} with the predict, expected {expected}")
+        if model.posterior is None:
+            raise AssertionError(f"{kind}: fit_naive did not keep the full store")
+        _finite_moments(kind, mean, var, T_TEST)
+        fit_runs = [model.fit_naive() for _ in range(3)]
+        predict_runs = [_timed(lambda: model.predict(xt))() for _ in range(3)]
+        prof = None
+        if kind == "poe":
+            import chip_profile
+
+            prof = chip_profile.profile(f"poe_n{n_train}", poe_pipeline(
+                model, xt), quiet=True)
+        fused_total += expected[0]
+        mean, var = model.predict(xt)
+        mu_l, var_l = (a.double().cpu().numpy()
+                       for a in model._leaf_predict_all(model._as_test(xt)))
+        leaf_mll = model.leaf_mlls().double().cpu().numpy()
+        theta = model.theta.double().cpu().numpy()
+        sizes = np.array([o.size for o in model.plan.leaf_obs])
+        picks = _oracle_picks(sizes, small=2)
+        oracle = {"mll_rel": 0.0, "mean_abs": 0.0, "var_rel": 0.0}
+        for l in picks:
+            mll_o, mu_o, var_o = oracle_leaf(x, y, model.plan, model.layout,
+                                             theta, l, xt)
+            oracle["mll_rel"] = max(oracle["mll_rel"], abs(leaf_mll[l] - mll_o)
+                                    / max(1.0, abs(mll_o)))
+            e = _moment_errors(mu_l[l], var_l[l], mu_o, var_o)
+            oracle["mean_abs"] = max(oracle["mean_abs"], e["mean_abs"])
+            oracle["var_rel"] = max(oracle["var_rel"], e["var_rel"])
+        _gate(f"{kind} leaves vs the float64 oracle",
+              {k: oracle[k] / ORACLE_TOL[k] for k in ORACLE_TOL}, 1.0)
+        prior = _rbcm_prior(model, T_TEST) if kind == "rbcm" else None
+        rep_mean, rep_var = fusion_replica(kind, mu_l, var_l,
+                                           model.plan.root_child_id, prior)
+        fusion = _moment_errors(mean, var, rep_mean, rep_var)
+        _gate(f"{kind} fusion vs its float64 replica",
+              {k: fusion[k] / FUSION_TOL[k] for k in FUSION_TOL}, 1.0)
+        del mu_l, var_l, model
+        model64 = poe_model(kind, x, y, torch.float64)
+        model64.fit_naive()
+        mean64, var64 = model64.predict(xt)
+        nmax64 = model64.plan.nmax
+        del model64
+        errs = _moment_errors(mean, var, mean64, var64)
+        _gate(f"{kind} f32 vs f64", {k: errs[k] / SLICE_TOL[k] for k in errs}, 1.0)
+        torch.cuda.empty_cache()
+        say(f"{kind}_n{n_train}", leaves=L, leaf_sizes=[int(sizes.min()),
+                                                        int(sizes.max())],
+            nmax=nmax, nmax_float64=nmax64, build_s=build_s,
+            launches=expected, cold_fit_naive_s=cold_fit_s,
+            cold_predict_t2000_s=cold_predict_s, fit_naive_s=min(fit_runs),
+            fit_runs=fit_runs, predict_t2000_s=min(predict_runs),
+            predict_runs=predict_runs, peak_memory_bytes=peak,
+            errors_f32_vs_f64=errs, oracle_leaves=picks,
+            oracle_leaf_sizes=sizes[picks].tolist(), errors_vs_oracle=oracle,
+            fusion_vs_replica=fusion,
+            tolerances={"f32": SLICE_TOL, "oracle": ORACLE_TOL,
+                        "fusion": FUSION_TOL},
+            profile=prof, card=card_line())
+    say("poe_family", seconds=time.perf_counter() - t_phase,
+        fused_launches=fused_total)
+    return fused_total
+
+
+def mixture_kernels():
+    """The leaves' kernels of ``bench.py`` ``run_mixture``."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    return [tdsm.IsoSE(0.0, 0.0), tdsm.ArdSE([0.0], 0.0), tdsm.IsoLinear(0.0)]
+
+
+def mixture_model(n_train, dtype, device="cuda", overlap=False):
+    """The kernel-mixture DSMGP of ``bench.py`` ``run_mixture`` (V=3, K=4,
+    M=30, depth 2, log noise -1, seed 0) on ``make_data``; with ``overlap``
+    the sparse ``MixtureOverlap`` its fine-tune reads."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(n_train)
+    return tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=mixture_kernels(),
+                            log_noise=-1.0, seed=0, device=device, dtype=dtype,
+                            do_fit=False, overlap=overlap,
+                            overlap_format="sparse" if overlap else "auto")
+
+
+def light_pipeline(model, xt, secs=None):
+    """``fit(store='light')`` → ``update`` → routed ``predict`` at ``xt``,
+    synchronized; returns ``(z, mean, var)``. ``secs``, a dict, gets the
+    fit's and the predict's seconds."""
+    import torch
+
+    def run():
+        fit_s = model.fit(store="light")
+        z = model.update()
+        t0 = time.perf_counter()
+        mean, var = model.predict(xt)
+        torch.cuda.synchronize()
+        if secs is not None:
+            secs.update(fit_s=fit_s, predict_s=time.perf_counter() - t0)
+        return z, mean, var
+
+    return run
+
+
+def _no_fused_domain(model, name):
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+    if any(fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
+                                model.device) for b in model.bucket_batches):
+        raise AssertionError(f"{name}: a bucket in the fused kernel's domain")
+
+
+def _refit_launches(model):
+    """``(fused, blocked)`` launches of ``model.fit()``: the full store
+    factors the monolithic batch chunk by chunk (``_factor_kept``), the
+    light store is one streamed pass."""
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.models import FULL_STORE_BYTES
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
+
+    nmax, dt = model.plan.nmax, model.dtype
+    if model._factor_bytes() > FULL_STORE_BYTES:
+        return _expected_launches(model, streamed=True)
+    chunks = math.ceil(model.num_leaves / fitlib.default_chunk(nmax, dt))
+    if fused_chol.supported(nmax, dt, model.layout.kinds, model.device):
+        return (chunks, 0)
+    return (0, chunks) if potrf.supported(nmax, dt, model.device) else (0, 0)
+
+
+def _twice(launched):
+    return tuple(2 * n for n in launched)
+
+
+def _refit_and_predict_launches(model):
+    """``(fused, blocked)`` launches of ``model.fit()`` and one routed
+    ``predict``: the full store predicts from its factors, the light store
+    streams again."""
+    from deepstructuredmixtures_tpu_torch.models import FULL_STORE_BYTES
+
+    refit = _refit_launches(model)
+    if model._factor_bytes() <= FULL_STORE_BYTES:
+        return refit
+    streamed = _expected_launches(model, streamed=True)
+    return tuple(a + b for a, b in zip(refit, streamed))
+
+
+def _per_kind_oracle(X, y, model, leaf_mll):
+    """Per kernel kind, the max relative leaf-mll error of the three
+    smallest leaves and the largest of at most ``ORACLE_MAX_LEAF`` points
+    against :func:`oracle_leaf`."""
+    plan, layout = model.plan, model.layout
+    theta = model.theta.double().cpu().numpy()
+    sizes = np.array([o.size for o in plan.leaf_obs])
+    worst, picked = {}, {}
+    for k, kind in enumerate(layout.kinds):
+        picks = _oracle_picks(sizes, np.nonzero(plan.leaf_kernelid == k)[0],
+                              largest_below=ORACLE_MAX_LEAF)
+        picked[kind] = sizes[picks].tolist()
+        worst[kind] = max(abs(leaf_mll[l] - m) / max(1.0, abs(m)) for l, m in (
+            (l, oracle_leaf(X, y, plan, layout, theta, l)) for l in picks))
+    return worst, picked
+
+
+def _mixture_streamed(xt):
+    """Phase 14 at N=100k: the streamed pipeline in float32 (cold, then
+    min of 2 warm) and float64, no kernel, per-kind oracle."""
+    import torch
+
+    n = MIXTURE_N
+    t0 = time.perf_counter()
+    m32 = mixture_model(n, torch.float32)
+    build_s = time.perf_counter() - t0
+    _no_fused_domain(m32, f"mixture N={n}")
+    kid = m32.plan.leaf_kernelid
+    sizes = np.array([o.size for o in m32.plan.leaf_obs])
+    expected = _twice(_expected_launches(m32, streamed=True))
+    if not expected[1]:
+        raise AssertionError(f"mixture N={n}: no bucket on the blocked kernel")
+    cold, warm = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    light_pipeline(m32, xt, cold)()
+    cold_s = time.perf_counter() - t0
+    got = launches()
+    if got != expected:
+        raise AssertionError(f"mixture N={n} launched {got}, expected {expected}")
+    t0 = time.perf_counter()
+    pipeline = light_pipeline(m32, xt, warm)
+    z, mean, var = pipeline()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _finite_moments(f"mixture N={n}", mean, var, T_TEST)
+    x, y = make_data(n)
+    oracle, oracle_sizes = _per_kind_oracle(
+        x, y, m32, m32.leaf_mlls().double().cpu().numpy())
+    _gate(f"mixture N={n} leaves vs the float64 oracle", oracle,
+          ORACLE_TOL["mll_rel"])
+    line = dict(leaves=m32.num_leaves, leaves_per_kind={
+        k: int((kid == i).sum()) for i, k in enumerate(m32.layout.kinds)},
+        leaf_sizes=[int(sizes.min()), int(sizes.max())],
+        buckets=len(m32.bucket_batches),
+        nmax=[min(m32.bucket_spec.nmaxs), max(m32.bucket_spec.nmaxs)],
+        build_s=build_s, cold_pipeline_s=cold_s, cold=cold, pipeline_s=warm_s,
+        fit_s=warm["fit_s"], predict_t2000_s=warm["predict_s"],
+        peak_memory_bytes=peak, launches=got,
+        blocked_shapes=_blocked_shapes(m32), errors_vs_oracle=oracle,
+        oracle_leaf_sizes=oracle_sizes)
+    run32 = {"z": z, "preds": {T_TEST: (mean, var)}}
+    del m32, pipeline
+    m64 = mixture_model(n, torch.float64)
+    z64, mean64, var64 = light_pipeline(m64, xt)()
+    del m64
+    errs = slice_errors(run32, {"z": z64, "preds": {T_TEST: (mean64, var64)}},
+                        sizes=(T_TEST,))
+    _gate(f"mixture N={n} f32 vs f64", {k: errs[k] / SLICE_TOL[k]
+                                         for k in SLICE_TOL}, 1.0)
+    say(f"mixture_n{n}", **line, evidence_f32=z, evidence_f64=z64,
+        errors_f32_vs_f64=errs, tolerances={"f32": SLICE_TOL,
+                                            "oracle": ORACLE_TOL["mll_rel"]},
+        card=card_line())
+    return got
+
+
+def _adam_steps(vg, theta0, steps, lr):
+    """``steps`` tied Adam steps along ``vg``'s gradient from ``theta0``:
+    the mll curve, the first gradient and each step's synchronized
+    seconds."""
+    import torch
+
+    theta = theta0.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([theta], lr=lr)
+    curve, secs, first = [], [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        v, g = vg(theta.detach())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        curve.append(float(v))
+        first = g.detach().clone() if first is None else first
+        theta.grad = -g
+        opt.step()
+    return curve, first, secs
+
+
+def _mixture_hybrid_train():
+    """Phase 14 at N=20k: the hybrid store (the blocked kernel above nmax
+    1024, the fused kernel never), tied training steps and one fine-tune
+    iteration over every candidate. Returns the ``(fused, blocked)``
+    launches of the hybrid fit and the fine-tune's refit."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.plan import MixtureOverlap
+    from deepstructuredmixtures_tpu_torch.train import (
+        _candidate_rows, make_value_and_grad_bucketed)
+
+    n = MIXTURE_HYBRID_N
+    t0 = time.perf_counter()
+    m32 = mixture_model(n, torch.float32, overlap=True)
+    build_s = time.perf_counter() - t0
+    if not isinstance(m32.plan.overlap, MixtureOverlap):
+        raise AssertionError("the mixture's D is not the sparse MixtureOverlap")
+    expected = _expected_launches(m32)
+    if expected[0] or not expected[1]:
+        raise AssertionError(f"mixture N={n}: expected launches {expected}")
+    fit_s, hybrid_launches = _hybrid_fit(m32)
+    cached_bytes = m32.last_fit_diagnostics["cached_bytes"]
+    h32 = {"z": m32.update()}
+    h32["preds"], predict_s = _timed_predicts(m32)
+    m64 = mixture_model(n, torch.float64, overlap=True)
+    m64.fit(store="hybrid")
+    h64 = {"z": m64.update()}
+    h64["preds"], _ = _timed_predicts(m64)
+    errs = _compare(h32, h64)
+
+    buckets = (m32.plan, m32.bucket_batches, m32.bucket_spec.leaf_ids)
+    vg = make_value_and_grad_bucketed(m32.layout, *buckets)
+    reset_launches()
+    curve, g32, step_s = _adam_steps(vg, m32.theta, MIXTURE_STEPS, MIXTURE_LR)
+    if launches() != (0, 0):
+        raise AssertionError(f"mixture training launched {launches()}")
+    if not np.all(np.diff(curve) > 0):
+        raise AssertionError(f"mixture training: the mll does not ascend {curve}")
+    vg64 = make_value_and_grad_bucketed(m64.layout, m64.plan, m64.bucket_batches,
+                                        m64.bucket_spec.leaf_ids)
+    v64, g64 = vg64(m64.theta)
+    del m64, vg64, h64
+    mll_rel = abs(curve[0] - float(v64)) / abs(float(v64))
+    grad_rel = _rel(g32.double().cpu().numpy(), g64.double().cpu().numpy())
+    if not (mll_rel <= SLICE_TOL["evidence_rel"] and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"mixture N={n} f32 vs f64: mll {mll_rel}, "
+                             f"grad {grad_rel}")
+
+    refit_expected = _refit_launches(m32)
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tdsm.finetune(m32, _recording(torch.optim.Adam, record, lr=MIXTURE_LR),
+                         iterations=1, lam=1e-9, bucketed=True, sparse=True,
+                         progress=False)
+    finetune_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    refit = launches()
+    if record[0][1] != (0, 0) or refit != refit_expected:
+        raise AssertionError(f"mixture finetune: launches {record[0][1]} before "
+                             f"and {refit} after the refit, expected "
+                             f"{refit_expected}")
+    L = m32.num_leaves
+    if not (np.isfinite(hist).all() and m32.theta.shape == (L, m32.layout.total)):
+        raise AssertionError(f"mixture finetune: history {hist}")
+    pairs = int(np.count_nonzero(_candidate_rows(m32.plan.overlap,
+                                                 np.arange(L)) + np.eye(L)))
+    say(f"mixture_n{n}", leaves=L, buckets=len(m32.bucket_batches),
+        nmax=[min(m32.bucket_spec.nmaxs), max(m32.bucket_spec.nmaxs)],
+        build_s=build_s, hybrid_fit_s=fit_s, launches_hybrid=hybrid_launches,
+        blocked_shapes=_blocked_shapes(m32, streamed=False),
+        cached_bytes=cached_bytes,
+        predict_s={str(k): v for k, v in predict_s.items()},
+        errors_f32_vs_f64=errs, train_route="make_value_and_grad_bucketed",
+        train_mll=curve, train_step_s=step_s, mll_f32_rel_vs_f64=mll_rel,
+        grad_f32_rel_vs_f64=grad_rel,
+        finetune_candidates=L, finetune_pairs=pairs,
+        finetune_hist=hist.tolist(),
+        finetune_iteration_s=_iteration_seconds(t0, record),
+        finetune_s=finetune_s, finetune_peak_memory_bytes=peak,
+        refit_launches=refit,
+        tolerances={"f32": SLICE_TOL, "grad_rel": TRAIN_GRAD_TOL},
+        card=card_line())
+    return tuple(a + b for a, b in zip(hybrid_launches, refit))
+
+
+def phase_mixture():
+    """Phase 14, kernel-mixture leaves (see the module docstring). Returns
+    the ``(fused, blocked)`` launches of its counted runs."""
+    t0 = time.perf_counter()
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    launched = np.add(_mixture_streamed(xt), _mixture_hybrid_train())
+    launched = tuple(int(v) for v in launched)
+    say("mixture", seconds=time.perf_counter() - t0, launches=launched)
+    return launched
+
+
+def config5_data(n=CONFIG5_N, d=CONFIG5_D, sub=CONFIG5_SUB, t=T_TEST):
+    """BASELINE config 5's data in ``bench.py``'s draw order (seed 1):
+    ``x [n, d]`` uniform, ``y``, the warm start's sorted subsample, and the
+    uniform test points ``[t, d]``."""
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0.0, 1.0, (n, d))
+    y = (np.sin(x[:, 0] * 6.0) * np.cos(x[:, 1] * 4.0) + 0.5 * x[:, 2]
+         - 0.3 * x[:, 3] ** 2 + 0.1 * rng.standard_normal(n))
+    idx = np.sort(rng.choice(n, min(sub, n), replace=False))
+    xt = rng.uniform(0.0, 1.0, (t, d))
+    return x, y, idx, xt
+
+
+def config5_model(x, y, dtype, V=3, K=4, seed=0):
+    """The additive ArdSE DSMGP of config 5 (M=30, log noise -1)."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    return tdsm.build_dsmgp(x, y, V=V, K=K, M=30,
+                            kernel=tdsm.ArdSE([0.0] * x.shape[1], 0.0),
+                            log_noise=-1.0, seed=seed, device="cuda",
+                            dtype=dtype, do_fit=False)
+
+
+def config5_warm_start(x, y, idx, dtype):
+    """The warm start of config 5: ``train`` (Adam, lr 5e-2, 15
+    iterations) on the subsample model (V=2, K=3, seed 1). Returns the
+    trained model and its seconds."""
+    import functools
+
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    msub = config5_model(x[idx], y[idx], dtype, V=2, K=3, seed=1)
+    t0 = time.perf_counter()
+    tdsm.train(msub, functools.partial(torch.optim.Adam, lr=CONFIG5_WARM_LR),
+               iterations=CONFIG5_WARM_ITERS, lam=1e-9, randinit=False,
+               progress=False)
+    torch.cuda.synchronize()
+    return msub, time.perf_counter() - t0
+
+
+def phase_config5():
+    """Phase 15, BASELINE config 5 (see the module docstring). Returns the
+    ``(fused, blocked)`` launches of the warm start's refit, the main path
+    (light fit, routed predict) and the fine-tune's refit and predict."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.train import _candidate_rows
+
+    t_phase = time.perf_counter()
+    n_train = CONFIG5_N
+    x, y, idx, xt = config5_data(n_train)
+    t0 = time.perf_counter()
+    model = config5_model(x, y, torch.float32)
+    build_s = time.perf_counter() - t0
+    _no_fused_domain(model, "config 5")
+    reset_launches()
+    msub, warm_s = config5_warm_start(x, y, idx, torch.float32)
+    warm_launches = launches()
+    if warm_launches != _refit_launches(msub):
+        raise AssertionError(f"config 5 warm start launched {warm_launches}, "
+                             f"expected {_refit_launches(msub)}")
+    theta = msub.get_params()
+    model.set_params(theta)
+    if not np.array_equal(model.get_params(), theta):
+        raise AssertionError("the warm start did not carry the hypers unchanged")
+    del msub
+    expected = _twice(_expected_launches(model, streamed=True))
+    if not expected[1]:
+        raise AssertionError("config 5: no bucket on the blocked kernel")
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    z, mean, var = light_pipeline(model, xt, secs)()
+    main_launches = launches()
+    if main_launches != expected:
+        raise AssertionError(f"config 5 launched {main_launches}, expected "
+                             f"{expected}")
+    _finite_moments("config 5", mean, var, T_TEST)
+    leaf_mll = model.leaf_mlls().double().cpu().numpy()
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    theta64 = model.theta.double().cpu().numpy()
+    picks = [int(l) for l in np.argsort(sizes, kind="stable")[:3]]
+    oracle = max(abs(leaf_mll[l] - m) / max(1.0, abs(m)) for l, m in (
+        (l, oracle_leaf(x, y, model.plan, model.layout, theta64, l))
+        for l in picks))
+    _gate("config 5 leaves vs the float64 oracle", {"mll_rel": oracle},
+          ORACLE_TOL["mll_rel"])
+
+    record = []
+    cand = None
+    if CONFIG5_FT_CANDIDATES is not None:
+        order = np.argsort(sizes, kind="stable")
+        cand = np.unique(order[np.linspace(0, sizes.size - 1,
+                                           CONFIG5_FT_CANDIDATES).astype(int)])
+    reset_launches()
+    t_ft = time.perf_counter()
+    hist = tdsm.finetune(model, _recording(torch.optim.Adam, record,
+                                           lr=CONFIG5_FT_LR),
+                         iterations=1, lam=1e-9, bucketed=True, sparse=True,
+                         leaves=cand, progress=False)
+    finetune_s = time.perf_counter() - t_ft
+    t0 = time.perf_counter()
+    mean_ft, var_ft = model.predict(xt)
+    torch.cuda.synchronize()
+    predict_ft_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(hist).all():
+        raise AssertionError(f"config 5 finetune: history {hist}")
+    _finite_moments("config 5 after the finetune", mean_ft, var_ft, T_TEST)
+    ft_launches = launches()
+    if record[0][1] != (0, 0) or ft_launches != _refit_and_predict_launches(
+            model):
+        raise AssertionError(f"config 5 finetune: launches {record[0][1]} in "
+                             f"the gradient, {ft_launches} with the refit and "
+                             f"predict, expected "
+                             f"{_refit_and_predict_launches(model)}")
+    cand = np.arange(sizes.size) if cand is None else cand
+    rows = _candidate_rows(model.plan.overlap, cand)
+    rows[np.arange(cand.size), cand] = 1.0
+    pairs = int(np.count_nonzero(rows))
+    nmaxs = model.bucket_spec.nmaxs
+    shapes = _blocked_shapes(model)
+    del model
+    model64 = config5_model(x, y, torch.float64)
+    model64.set_params(theta)
+    model64.fit(store="light")
+    z64 = model64.update()
+    mean64, var64 = model64.predict(xt)
+    del model64
+    errs = slice_errors({"z": z, "preds": {T_TEST: (mean, var)}},
+                        {"z": z64, "preds": {T_TEST: (mean64, var64)}},
+                        sizes=(T_TEST,))
+    _gate("config 5 f32 vs f64", {k: errs[k] / SLICE_TOL[k] for k in SLICE_TOL},
+          1.0)
+    say(f"config5_n{n_train}", leaves=int(sizes.size),
+        leaf_sizes=[int(sizes.min()), int(sizes.max())],
+        buckets=len(nmaxs), nmax=[min(nmaxs), max(nmaxs)],
+        build_s=build_s, warm_start_s=warm_s, warm_start_launches=warm_launches,
+        hypers=theta.tolist(), fit_s=secs["fit_s"],
+        predict_t2000_s=secs["predict_s"], launches=main_launches,
+        blocked_shapes=shapes,
+        finetune_candidates=cand.tolist(),
+        finetune_candidate_sizes=sizes[cand].tolist(), finetune_pairs=pairs,
+        finetune_hist=hist.tolist(),
+        finetune_iteration_s=_iteration_seconds(t_ft, record),
+        finetune_s=finetune_s, predict_after_finetune_s=predict_ft_s,
+        peak_memory_bytes=peak, evidence_f32=z, evidence_f64=z64,
+        errors_f32_vs_f64=errs, oracle_leaf_sizes=sizes[picks].tolist(),
+        oracle_mll_rel=oracle, finetune_launches=ft_launches,
+        tolerances={"f32": SLICE_TOL, "oracle": ORACLE_TOL["mll_rel"]},
+        card=card_line(),
+        seconds=time.perf_counter() - t_phase)
+    return tuple(int(a + b + c) for a, b, c in zip(warm_launches, main_launches,
+                                                   ft_launches))
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -2029,6 +2826,10 @@ def main():
     fused_launches += train_fused
     blocked_launches += train_blocked
     fused_launches += phase_mesh(ref20k, ref100k)
+    fused_launches += phase_poe()
+    for fused, blocked in (phase_mixture(), phase_config5()):
+        fused_launches += fused
+        blocked_launches += blocked
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [{

@@ -1,5 +1,7 @@
-"""Checkpoints in the JAX package's ``.npz`` format (counterpart of the npz
-half of ``deepstructuredmixtures_tpu/checkpoint.py``).
+"""Checkpoints in the JAX package's ``.npz`` format, and the same payload
+through ``torch.distributed.checkpoint`` (counterpart of
+``deepstructuredmixtures_tpu/checkpoint.py``: ``save`` / ``load``, and
+``save_dcp`` / ``load_dcp`` in the place of its orbax pair).
 
 A file holds the tree specification (leaf observation sets, boxes, split
 structure, sum weights), the kernel specs, the flat hyper vector (tied or
@@ -69,11 +71,11 @@ def _kernel_specs(model):
     return specs
 
 
-def save(model, path: str):
-    """Write ``model`` (any model class) to ``path`` in the JAX package's
-    npz format, ``overlap`` true when the model has the overlap
-    analysis."""
-    meta = {
+def _meta(model) -> dict:
+    """The JSON metadata of a checkpoint: class, tree, kernels, dtype,
+    ``overlap`` (true when the model has the overlap analysis) and the
+    plan's ``pad_multiple``."""
+    return {
         "class": type(model).__name__,
         "tree": _tree_to_spec(model.root),
         "kernels": [{"kind": k.kind, "logl": list(k.logl),
@@ -82,10 +84,18 @@ def save(model, path: str):
         "overlap": model.plan.overlap is not None,
         "pad_multiple": int(model.plan.pad_multiple),
     }
-    np.savez_compressed(path, meta=json.dumps(meta), X=np.asarray(model.X),
-                        y=np.asarray(model.y),
-                        theta=model.theta.cpu().numpy(),
-                        logweights=model.logweights.cpu().numpy())
+
+
+def _arrays(model) -> dict:
+    return {"X": np.asarray(model.X), "y": np.asarray(model.y),
+            "theta": model.theta.cpu().numpy(),
+            "logweights": model.logweights.cpu().numpy()}
+
+
+def save(model, path: str):
+    """Write ``model`` (any model class) to ``path`` in the JAX package's
+    npz format."""
+    np.savez_compressed(path, meta=json.dumps(_meta(model)), **_arrays(model))
 
 
 def load(path: str, *, device, dtype=None):
@@ -96,10 +106,59 @@ def load(path: str, *, device, dtype=None):
     shared schedule are built when the file's ``overlap`` is true (the
     default of a file without it), as in the JAX package. The log-weights
     are kept in float64, the dtype of the port's combine."""
+    data = np.load(path, allow_pickle=False)
+    return _restore(json.loads(str(data["meta"])), data, device, dtype)
+
+
+def _dcp(fn, state, path):
+    """``torch.distributed.checkpoint``'s ``save`` or ``load`` of ``state``:
+    collective under an initialized process group, else in this process
+    alone (without its warning that it assumes so)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    alone = not (dist.is_available() and dist.is_initialized())
+    with warnings.catch_warnings():
+        if alone:
+            warnings.filterwarnings("ignore", message="torch.distributed is")
+        fn(state, checkpoint_id=path, no_dist=alone)
+
+
+def save_dcp(model, path: str):
+    """Write ``model`` to the directory ``path`` with
+    ``torch.distributed.checkpoint`` (the counterpart of the JAX package's
+    ``save_orbax``): the payload of :func:`save`, the JSON metadata as a
+    uint8 tensor. Under an initialized process group every rank calls it
+    alike (the payload is replicated)."""
+    import torch.distributed.checkpoint as dcp
+
+    meta = np.frombuffer(json.dumps(_meta(model)).encode(), dtype=np.uint8)
+    state = {"meta": torch.from_numpy(meta.copy())}
+    state.update({k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in _arrays(model).items()})
+    _dcp(dcp.save, state, path)
+
+
+def load_dcp(path: str, *, device, dtype=None):
+    """Restore a model saved by :func:`save_dcp` onto ``device``, as
+    :func:`load` does."""
+    import torch.distributed.checkpoint as dcp
+
+    shapes = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in shapes.items()}
+    _dcp(dcp.load, state, path)
+    meta = json.loads(state.pop("meta").numpy().tobytes().decode())
+    return _restore(meta, {k: v.numpy() for k, v in state.items()}, device,
+                    dtype)
+
+
+def _restore(meta, data, device, dtype):
+    """A model from a checkpoint's metadata and its arrays ``X``, ``y``,
+    ``theta`` and ``logweights`` (see :func:`load`)."""
     from . import models as modelslib
 
-    data = np.load(path, allow_pickle=False)
-    meta = json.loads(str(data["meta"]))
     root = _spec_to_tree(meta["tree"])
     kernels = tuple(KernelSpec(k["kind"], tuple(k["logl"]), k["logsigma"])
                     for k in meta["kernels"])

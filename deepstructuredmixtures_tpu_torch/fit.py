@@ -71,7 +71,27 @@ def _maybe_fused_chol(layout, theta, batch: LeafBatch):
         batch.x, batch.n, logl_v, logsigma_v, noise_v, eps=EPS)
 
 
+def _kept_recipe(layout, batch: LeafBatch) -> bool:
+    """Whether the streamed path treats a chunk as the hybrid store does:
+    the blocked kernel's factor (:func:`_factor_kept`) and float64 solves
+    against it (:func:`_moments`). So it does on CUDA in float32 above
+    nmax 1024 for every kernel set but a single IsoSE. On an H100
+    cuSOLVER's float32 factor of a large IsoLinear or ArdSE leaf missed
+    its mll by 21-75% (backward error 5e-5-1.4e-4, the blocked kernel's
+    1.4e-6-1.4e-5), and float32 solves against the blocked factor put the
+    routed mean 1.1e-2-1.5e-2 from float64 (bound 5e-3;
+    ``chip_chol_routes.py``, ``PERF.md``). A single IsoSE keeps cuSOLVER
+    and float32 solves: within its bounds, where the blocked factor moved
+    its mean to 1.41e-2 (``chip_potrf_ab.py``)."""
+    return layout.kinds != ("iso_se",) and potrf.supported(
+        batch.nmax, batch.x.dtype, batch.x.device)
+
+
 def _factor(layout, theta, batch: LeafBatch):
+    """The streamed factor: the fused kernel where it applies, the blocked
+    kernel under :func:`_kept_recipe`, else ``cholesky_nosym``."""
+    if _kept_recipe(layout, batch):
+        return _factor_kept(layout, theta, batch)
     Lf = _maybe_fused_chol(layout, theta, batch)
     if Lf is None:
         Lf = chol.cholesky_nosym(_noisy_gram(layout, theta, batch))
@@ -98,6 +118,33 @@ def _factor_kept(layout, theta, batch: LeafBatch):
 #: --refine-steps 1``, ``PERF.md``). The unrefined path keeps
 #: :func:`_factor`: there the float32 solves put the mean past its bound.
 _factor_refined = _factor_kept
+
+
+def _forward_solve(layout, theta, batch: LeafBatch, Lf, xt, float64=False):
+    """``Z = L^{-1} [y | K_nt]``, the one solve per chunk of the predicts;
+    with ``float64`` in float64 against the factor (cast per chunk)."""
+    Knt = leaf_gram(layout, theta, batch, xt)  # [C, Nmax, T]
+    Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
+    rhs = torch.cat([centered_y(batch)[..., None], Knt], dim=-1)
+    del Knt
+    if float64:
+        Lf, rhs = Lf.double(), rhs.double()
+    return chol.solve_lower(Lf, rhs)
+
+
+def _moments(layout, theta, batch: LeafBatch, Lf, xt, float64: bool):
+    """Per-leaf moments from the factors ``Lf``: with ``z, V`` from
+    :func:`_forward_solve`, the mean ``m + V'z`` and the variance ``k_tt -
+    ||V||² + noise``, in the batch's dtype. Returns ``(mu, var, z)``,
+    ``z`` in the solve's dtype."""
+    dt = batch.x.dtype
+    Z = _forward_solve(layout, theta, batch, Lf, xt, float64)
+    z, V = Z[..., 0], Z[..., 1:]
+    mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
+    ktt = leaf_gram_diag(layout, theta, batch, xt)
+    noise = leaf_noise(layout, theta, batch)
+    var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
+    return mu.to(dt), var.to(dt), z
 
 
 def _alpha(Lf, z):
@@ -149,30 +196,24 @@ def streamed_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, xt,
     ``refine_steps > 0``: the chunk is factored by :data:`_factor_refined`,
     its solves are refined jointly against true-K float64 residuals
     (:func:`ops.refine.refine_joint`) and the moments and mll come back in
-    float64.
+    float64. Under :func:`_kept_recipe` the solve runs in float64 against
+    the factor, as in :func:`cached_leaf_predict`.
     """
     chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
                 batch.num_leaves)
     factor = _factor_refined if refine_steps else _factor
+    solve64 = not refine_steps and _kept_recipe(layout, batch)
     mus, vars_, mlls = [], [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
         Lf = factor(layout, th, b)
         xt_leaf = xt if tidx is None else xt[tidx[s:e]]
-        Knt = leaf_gram(layout, th, b, xt_leaf)  # [C, Nmax, T]
-        Knt = torch.where(b.mask[:, :, None], Knt, 0.0)
-        rhs = torch.cat([centered_y(b)[..., None], Knt], dim=-1)
-        Z = chol.solve_lower(Lf, rhs)
-        z = Z[..., 0]
-        V = Z[..., 1:]
         if refine_steps:
-            mu, var, mll = refine.refine_joint(layout, th, b, Lf, z, V,
-                                               xt_leaf, refine_steps)
+            Z = _forward_solve(layout, th, b, Lf, xt_leaf)
+            mu, var, mll = refine.refine_joint(layout, th, b, Lf, Z[..., 0],
+                                               Z[..., 1:], xt_leaf, refine_steps)
         else:
-            ktt = leaf_gram_diag(layout, th, b, xt_leaf)
-            noise = leaf_noise(layout, th, b)
-            var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
-            mll = leaf_mll_forward(Lf, z, b)
-            mu = b.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
+            mu, var, z = _moments(layout, th, b, Lf, xt_leaf, solve64)
+            mll = leaf_mll_forward(Lf, z, b).to(b.x.dtype)
         mus.append(mu)
         vars_.append(var)
         mlls.append(mll)
@@ -334,20 +375,12 @@ def cached_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, Lf,
     exact arithmetic."""
     chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
                 batch.num_leaves)
-    dt = batch.x.dtype
     mus, vars_ = [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
         xt_leaf = xt if tidx is None else xt[tidx[s:e]]
-        Knt = leaf_gram(layout, th, b, xt_leaf)  # [C, Nmax, T]
-        Knt = torch.where(b.mask[:, :, None], Knt, 0.0)
-        rhs = torch.cat([centered_y(b)[..., None], Knt], dim=-1)
-        Z = chol.solve_lower(Lf[s:e].double(), rhs.double())
-        V = Z[..., 1:]
-        mus.append((b.mean[:, None] + torch.einsum("lnt,ln->lt", V, Z[..., 0]))
-                   .to(dt))
-        ktt = leaf_gram_diag(layout, th, b, xt_leaf)
-        noise = leaf_noise(layout, th, b)
-        vars_.append((ktt - torch.sum(V * V, dim=-2) + noise[:, None]).to(dt))
+        mu, var, _ = _moments(layout, th, b, Lf[s:e], xt_leaf, True)
+        mus.append(mu)
+        vars_.append(var)
     return torch.cat(mus), torch.cat(vars_)
 
 

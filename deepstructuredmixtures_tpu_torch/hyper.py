@@ -27,6 +27,11 @@ class HyperLayout(NamedTuple):
     blocks: Tuple[Tuple[int, int], ...]
     total: int
 
+    def slice_of(self, kernelid: int) -> Tuple[int, int]:
+        """``(start, stop)`` of kernelid's block in the flat vector."""
+        off, nl = self.blocks[kernelid]
+        return off, off + nl + 2
+
 
 def make_layout(kernels: Sequence[KernelSpec]) -> HyperLayout:
     kinds = tuple(k.kind for k in kernels)

@@ -1,6 +1,10 @@
 """Batched leaf-GP math over padded ``[L, Nmax, ...]`` blocks (counterpart
 of ``deepstructuredmixtures_tpu/leafgp.py``, forward only).
 
+:func:`factorize` and :func:`leaf_predict` are the JAX package's
+unchunked whole-batch forms, on ``torch.linalg``; the fit paths
+(``fit.py``) chunk the leaves and factor through the CUDA kernels.
+
 Padding contract: each leaf occupies rows ``< n[l]`` of ``Nmax``; padded
 rows carry ``y = 0`` and identity covariance rows, making them exact
 no-ops in factorization, solves, logdet and predictions.
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from . import hyper as hyperlib
+from .config import EPS
 from .kernels import gram, gram_diag
 from .ops import cholesky as chol
 
@@ -131,6 +136,39 @@ def leaf_gram_diag(layout: hyperlib.HyperLayout, theta, batch: LeafBatch, xt):
         return gram_diag(kind, logl, logsigma, xtb)
 
     return _select_by_kernel(layout, batch, per_kind)
+
+
+def factorize(layout, theta, batch: LeafBatch) -> LeafPosterior:
+    """Batched ``update_cholesky!`` + mll over all leaves (≙
+    ``gaussianprocess.jl:87-108,163``): noisy gram, Cholesky, alphas and
+    mlls of the whole batch at once."""
+    K = leaf_gram(layout, theta, batch)
+    noise = leaf_noise(layout, theta, batch)
+    Lf = chol.cholesky_nosym(chol.masked_gram_noise(K, batch.mask, noise, EPS))
+    return posterior_from_chol(Lf, batch)
+
+
+def leaf_mll(Lf, yc, alpha, batch: LeafBatch):
+    """``-(y'α + logdet + N log 2π) / 2`` per leaf (≙
+    ``gaussianprocess.jl:163``)."""
+    quad = torch.sum(yc * alpha, dim=-1)
+    logdet = chol.masked_logdet(Lf, batch.mask)
+    nn = batch.n.to(Lf.dtype)
+    return -0.5 * (quad + logdet + nn * LOG2PI)
+
+
+def leaf_predict(layout, theta, batch: LeafBatch, post: LeafPosterior, xt):
+    """Predictive mean and variance (noise included) of every leaf at the
+    shared test points ``xt [T, D]``: ``(mu [L, T], var [L, T])``, the
+    diagonal of the reference's ``prediction`` (``gaussianprocess.jl:
+    110-137``), from a :func:`factorize` posterior."""
+    Knt = leaf_gram(layout, theta, batch, xt)  # [L, Nmax, T]
+    Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
+    mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", Knt, post.alpha)
+    V = chol.solve_lower(post.chol, Knt)
+    ktt = leaf_gram_diag(layout, theta, batch, xt)
+    noise = leaf_noise(layout, theta, batch)
+    return mu, ktt - torch.sum(V * V, dim=-2) + noise[:, None]
 
 
 def leaf_mll_forward(Lf, z, batch: LeafBatch):

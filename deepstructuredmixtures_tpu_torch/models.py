@@ -602,12 +602,15 @@ class RBCM(BaseModel):
         mu, var = self._leaf_predict_all(xt)
         # prior variance of the first (leftmost) leaf GP (≙ leftGP +
         # kernelmatrix diag + noise, common.jl:227-228); under per-leaf
-        # hypers that is leaf 0's row
+        # hypers that is leaf 0's row. Computed in float64 like the rest of
+        # the combine: the rBCM mean divides by a sum that cancels against
+        # 1/prior, so a float32 prior moves it by about 1e-9 (the JAX
+        # package computes it in the model dtype)
         kid = int(self.plan.leaf_kernelid[0])
-        t = self.theta if self.theta.ndim == 1 else self.theta[0]
+        t = (self.theta if self.theta.ndim == 1 else self.theta[0]).double()
         logl, logsigma, lognoise = unpack(self.layout, t, kid)
-        prior = gram_diag(self.layout.kinds[kid], logl, logsigma, xt) + noise_from(
-            lognoise)
+        prior = gram_diag(self.layout.kinds[kid], logl, logsigma,
+                          xt.double()) + noise_from(lognoise)
         return inferlib.predict_rbcm(self.plan, mu, var, prior)
 
 

@@ -64,6 +64,19 @@ def cholesky_nosym(K):
     return L
 
 
+def masked_cholesky(K, mask):
+    """Lower Cholesky of an identity-padded covariance batch."""
+    return cholesky_nosym(pad_identity(K, mask))
+
+
+def cho_solve_lower(L, y):
+    """Solve ``(L L^T) x = y`` given lower ``L``, ``y [..., N]``: the alpha
+    weights (Rasmussen & Williams Alg. 2.1; reference
+    ``gaussianprocess.jl:105``)."""
+    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+
+
 def solve_lower(L, B):
     """Triangular solve ``L^{-1} B`` (≙ ``gp.cK.L \\ Knt``,
     ``gaussianprocess.jl:120``)."""

@@ -308,3 +308,84 @@ def test_cuda_mesh_world_of_one_nccl(cuda_device, tmp_path):
         assert r32["launched"][0] > 0 and r32["launched"][1] == 0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_poe_fused_factor_at_2048_128(cuda_device):
+    """The PoE family's monolithic batch at N=100k (2,048 experts of 48-50
+    points, nmax 128 on CUDA in float32): ``fit_naive`` factors it with one
+    fused launch, never the blocked kernel, and its factors match the
+    plain version's in float64 within the kernel's bound."""
+    import chip_smoke
+
+    x, y = chip_smoke.make_data(100_000)
+    m = chip_smoke.poe_model("poe", x, y, torch.float32, cuda_device)
+    assert (m.num_leaves, m.plan.nmax) == (2048, 128)
+    fused, blocked = fused_chol.LAUNCHES, potrf.LAUNCHES
+    m.fit_naive()
+    torch.cuda.synchronize()
+    assert (fused_chol.LAUNCHES - fused, potrf.LAUNCHES - blocked) == (1, 0)
+    b = m.batch
+    logl, logsigma, lognoise = (t.double() for t in m.theta)
+    ref = fused_chol.fused_gram_cholesky_reference(
+        b.x.double(), b.n, logl.expand(2048), logsigma.expand(2048),
+        torch.exp(2 * lognoise).expand(2048))
+    valid = b.mask[:, :, None] & b.mask[:, None, :]
+    err = (m.posterior.chol.double() - ref).abs()[valid].max()
+    assert float(err) < TOL
+
+
+@pytest.mark.cuda
+def test_cuda_mixture_hybrid_fit(cuda_device):
+    """The kernel-mixture model at N=20k (IsoSE, ArdSE, IsoLinear leaves)
+    in float32: ``fit(store='hybrid')`` factors every bucket above nmax
+    1024 with the blocked kernel, once per leaf chunk, never the fused
+    one, and its cached predictions are within ``chip_smoke.SLICE_TOL`` of
+    the float64 model's."""
+    import chip_smoke
+
+    runs, expected = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        m = chip_smoke.mixture_model(20_000, dtype, cuda_device)
+        expected[dtype] = chip_smoke._expected_launches(m)
+        chip_smoke.reset_launches()
+        m.fit(store="hybrid")
+        torch.cuda.synchronize()
+        assert chip_smoke.launches() == expected[dtype]
+        xt = np.linspace(-0.05, 1.05, 500).reshape(-1, 1)
+        runs[dtype] = {"z": m.update(), "preds": {500: m.predict(xt)}}
+    assert expected[torch.float64] == (0, 0)
+    assert expected[torch.float32][0] == 0 and expected[torch.float32][1] > 0
+    errs = chip_smoke.slice_errors(runs[torch.float32], runs[torch.float64],
+                                   sizes=(500,))
+    assert all(errs[k] <= tol for k, tol in chip_smoke.SLICE_TOL.items()), errs
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_iso_linear_leaf_within_float32_bounds(cuda_device):
+    """A 7,600-point IsoLinear leaf at x in [0.75, 0.82] (the worst leaf of
+    the N=100k mixture) in float32 through the streamed fit: its mll within
+    1e-3 of float64. cuSOLVER's float32 factor, which the streamed path
+    took before (``fit._kept_recipe``), missed it by 21% on an H100; the
+    blocked kernel's by 1.6e-5."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    rng = np.random.default_rng(11)
+    x = np.sort(rng.uniform(0.75, 0.82, 7600)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, 7600)
+    mll = {}
+    for dtype in (torch.float32, torch.float64):
+        gp = tdsm.build_dsmgp(x, y, V=1, K=1, M=8000, kernel=tdsm.IsoLinear(0.0),
+                              log_noise=-1.0, seed=0, device=cuda_device,
+                              dtype=dtype, do_fit=False, overlap=False)
+        assert gp.num_leaves == 1
+        before = potrf.LAUNCHES
+        gp.fit(store="light")
+        torch.cuda.synchronize()
+        assert potrf.LAUNCHES - before == (1 if dtype == torch.float32 else 0)
+        assert fitlib._kept_recipe(gp.layout, gp.bucket_batches[0]) == (
+            dtype == torch.float32)
+        mll[dtype] = float(gp.leaf_mlls()[0])
+    assert abs(mll[torch.float32] - mll[torch.float64]) <= 1e-3 * abs(
+        mll[torch.float64])

@@ -163,6 +163,21 @@ def test_port_never_imports_jax():
         "t.train_gp(t.GaussianProcess(x, y, device='cpu'), iterations=2,"
         " randinit=False)\n"
         "import os, tempfile, torch.distributed as dist\n"
+        "from deepstructuredmixtures_tpu_torch import leafgp, ops\n"
+        "g = t.build_dsmgp(x, y, M=20, device='cpu', seed=1, do_fit=False)\n"
+        "b = g.batch.rows(0, 2)\n"
+        "post = leafgp.factorize(g.layout, g.theta, b)\n"
+        "leafgp.leaf_predict(g.layout, g.theta, b, post, b.x[0, :3])\n"
+        "ops.cho_solve_lower(post.chol, b.y)\n"
+        "d = os.path.join(tempfile.mkdtemp(), 'dcp')\n"
+        "checkpoint.save_dcp(m, d); checkpoint.load_dcp(d, device='cpu')\n"
+        "for build in (t.build_poe, t.build_bcm):\n"
+        "    p = build(x, y, M=20, device='cpu', seed=1)\n"
+        "    p.fit_naive(); p.predict(np.linspace(0, 1, 9))\n"
+        "k = [t.IsoSE(0.0, 0.0), t.ArdSE([0.0], 0.0), t.IsoLinear(0.0)]\n"
+        "m = t.build_dsmgp(x, y, M=20, kernel=k, device='cpu', seed=1,"
+        " overlap_format='sparse')\n"
+        "t.finetune(m, iterations=1, leaves=[0], bucketed=True)\n"
         "from deepstructuredmixtures_tpu_torch import parallel\n"
         "from deepstructuredmixtures_tpu_torch.parallel import dryrun\n"
         "store = os.path.join(tempfile.mkdtemp(), 'store')\n"

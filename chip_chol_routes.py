@@ -44,14 +44,11 @@ CONFIG5_HYPERS = [-0.6845075488090515, -0.6226929426193237, 0.7125609517097473,
 
 def _leaf_gram(model, leaf):
     """``(noisy gram [1, n, n], the leaf's one-leaf batch)``."""
+    import chip_smoke
     from deepstructuredmixtures_tpu_torch import fit as fitlib
 
-    for b, ids in zip(model.bucket_batches, model.bucket_spec.leaf_ids):
-        hit = np.nonzero(ids == leaf)[0]
-        if hit.size:
-            one = b.rows(int(hit[0]), int(hit[0]) + 1)
-            return fitlib._noisy_gram(model.layout, model.theta, one), one
-    raise KeyError(leaf)
+    one = chip_smoke._leaf_batch(model, leaf)
+    return fitlib._noisy_gram(model.layout, model.theta, one), one
 
 
 def _mll(Lf, one):
@@ -148,7 +145,8 @@ def main():
     cs.phase_build()
     models = {dt: cs.mixture_model(100_000, dt) for dt in (torch.float32,
                                                             torch.float64)}
-    leaf_routes("iso_linear", models[torch.float32], models[torch.float64], 95)
+    leaf_routes("iso_linear", models[torch.float32], models[torch.float64],
+                cs.MIXTURE_WORST_ISO_LINEAR)
     leaf_routes("iso_se_mixture", models[torch.float32], models[torch.float64],
                 183)
     del models

@@ -75,7 +75,11 @@ non-zero; no phase catches its own failure or falls back to the CPU):
 10. the standalone ``GaussianProcess`` at N=8,192 in float32 and float64:
    fit, predict at T=2000 and ``grad_mll`` times; float32 against float64;
    the full covariance's diagonal against the marginal variance; the
-   float64 gradient against a central finite difference;
+   float64 gradient against a central finite difference; an IsoLinear GP
+   at n=7,600 (the kept route of the training objective: the blocked
+   kernel's factor, a float64 backward; one blocked launch in the fit and
+   one in ``grad_mll``), its mll and ``grad_mll`` in float32 against
+   float64 by phase 11's bounds;
 11. training, on fresh models (the optimizer's first step, which imports
    ``torch._dynamo``, timed apart): at N=20,000 the root mll and its
    gradient at the start hypers by the route ``train`` takes (one graph
@@ -126,21 +130,31 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    routed predict (no bucket in the fused kernel's domain; the blocked
    kernel factors every bucket, with float64 solves, ``fit._kept_recipe``)
    in float32 against float64, per kind three small leaves and the largest
-   of at most 6,000 points against the oracle; at N=20,000 the hybrid store
-   (the blocked kernel on every bucket above nmax 1024, the fused one
-   never) against float64, three tied Adam steps through
-   ``make_value_and_grad_bucketed`` (the mll ascends, no launch; the first
-   gradient in float32 against float64) and one ``finetune`` iteration over
-   all 432 candidates through the sparse ``MixtureOverlap`` pair list;
+   of at most 6,000 points against the oracle; the training objective's
+   value and tied gradient on three one-leaf batches (the worst IsoLinear
+   leaf, n=7,627, and the largest ArdSE and IsoSE leaves; the kept route,
+   one blocked launch each) in float32 against float64 by phase 11's
+   bounds, and its leaf mll against ``fit.bucketed_leaf_mlls`` at the same
+   hypers (1e-6); at N=20,000 the hybrid store (the blocked kernel on
+   every bucket above nmax 1024, the fused one never) against float64,
+   three tied Adam steps through ``make_value_and_grad_bucketed`` (the mll
+   ascends; the objective's blocked launches, two per leaf chunk above
+   nmax 1024, counted from the plan; the first gradient in float32
+   against float64) and one ``finetune`` iteration over all 432
+   candidates through the sparse ``MixtureOverlap`` pair list (its
+   gradient's blocked launches counted from the plan);
 15. BASELINE config 5 at N=100,000 (``bench.py`` ``run_config5``, 4-D
    data, additive ArdSE): the warm start (``train``, 15 Adam iterations
    on a 4,000-point V=2 K=3 model, the hypers carried by
    ``set_params(get_params())``), the light fit → update → routed predict
    (the blocked kernel on every bucket) against float64 and the three
    smallest leaves against the oracle, then one bucketed ``finetune``
-   iteration of ``CONFIG5_FT_CANDIDATES`` leaves and predict again
-   (finite); ``chip_profile.py --family poe|mixture|config5`` profiles one
-   warm call of each pipeline;
+   iteration of ``CONFIG5_FT_CANDIDATES`` leaves (its first evaluation, the
+   candidates' own mlls and gradients, in float32 against the same
+   evaluation in float64 by phase 11's bounds; its gradient's blocked
+   launches counted from the plan) and predict again (finite);
+   ``chip_profile.py --family poe|mixture|config5`` profiles one warm call
+   of each pipeline;
 16. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -1198,6 +1212,8 @@ def phase_refine(run20k, run20k64, run100k, run100k64, headline_s):
 #: phase 10's GP: training points, and its float64 gradient's bound against
 #: a central difference of step GP_FD_STEP (relative, per component)
 GP_N, GP_FD_STEP, GP_GRAD_TOL = 8192, 1e-4, 1e-6
+#: phase 10's IsoLinear GP: the points of the mixture's worst IsoLinear leaf
+GP_LINEAR_N = 7600
 #: the full covariance's diagonal against the marginal variance (relative)
 GP_DIAG_TOL = {"float32": 1e-4, "float64": 1e-10}
 
@@ -1221,7 +1237,9 @@ def phase_gp():
     float64: fit, predict at T=2000 and ``grad_mll`` (min of 3 each); the
     float32 mll, mean and variance against float64 within ``SLICE_TOL``;
     the full covariance's diagonal against the marginal variance; the
-    float64 gradient against a central finite difference."""
+    float64 gradient against a central finite difference; then the
+    IsoLinear GP (:func:`_gp_iso_linear`), whose ``(fused, blocked)``
+    launches it returns."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -1274,6 +1292,46 @@ def phase_gp():
                                                   for k, v in out.items()},
         grad_mll_f64=g.tolist(), grad_rel_vs_finite_difference=grad_rel,
         card=card_line())
+    return _gp_iso_linear()
+
+
+def _gp_iso_linear():
+    """``GaussianProcess(kernel=IsoLinear(0))`` on the mixture's worst
+    IsoLinear leaf's span (7,600 points at x in [0.75, 0.82], as
+    ``tests/test_torch_cuda.py`` builds it), log noise -1: its mll and
+    ``grad_mll`` in float32 against float64 by phase 11's bounds. The
+    float32 fit and gradient take the kept route (one blocked launch each).
+    Returns the ``(fused, blocked)`` launches."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    rng = np.random.default_rng(11)
+    x = np.sort(rng.uniform(0.75, 0.82, GP_LINEAR_N)).reshape(-1, 1)
+    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, GP_LINEAR_N)
+    out, secs = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoLinear(0.0),
+                                  log_noise=-1.0, device="cuda", dtype=dtype)
+        reset_launches()
+        t0 = time.perf_counter()
+        mll = gp.mll()
+        t1 = time.perf_counter()
+        g = gp.grad_mll().double().cpu().numpy()
+        secs[name] = {"fit_s": t1 - t0, "grad_mll_s": time.perf_counter() - t1}
+        out[name] = (mll, g, launches())
+    got = out["float32"][2]
+    if got != (0, 2) or out["float64"][2] != (0, 0):
+        raise AssertionError(f"IsoLinear GP launched {got} / {out['float64'][2]}")
+    mll_rel, grad_rel = _objective_gates(
+        "IsoLinear GP", {"gp": out["float32"][:2]}, {"gp": out["float64"][:2]})
+    say(f"gp_iso_linear_n{GP_LINEAR_N}", n=GP_LINEAR_N, times=secs,
+        mll={k: v[0] for k, v in out.items()}, launches=got,
+        mll_f32_rel_vs_f64=mll_rel["gp"], grad_f32_rel_vs_f64=grad_rel["gp"],
+        tolerances={"mll_rel": SLICE_TOL["evidence_rel"],
+                    "grad_rel": TRAIN_GRAD_TOL}, card=card_line())
+    return got
 
 
 #: training (phase 11): the float32 gradient against float64 on the card,
@@ -2083,6 +2141,15 @@ FUSION_TOL = {"mean_abs": 1e-10, "var_rel": 1e-8}
 MIXTURE_N, MIXTURE_HYBRID_N = 100_000, 20_000
 MIXTURE_STEPS, MIXTURE_LR = 3, 1e-2
 ORACLE_MAX_LEAF = 6000
+#: the N=100k mixture's IsoLinear leaf whose float32 factor
+#: ``chip_chol_routes.py`` measures (n=7,627: cuSOLVER's float32 route
+#: missed its mll by 21% on an H100); phase 14 holds the training
+#: objective there and on the largest ArdSE and IsoSE leaves to float64
+MIXTURE_WORST_ISO_LINEAR = 95
+#: the float32 objective's leaf mll against the light fit's at the same
+#: hypers (the same gram, factor and solve: equal but for the order of the
+#: kernel's sums across launches)
+OBJECTIVE_FIT_TOL = 1e-6
 #: phase 15, BASELINE config 5 (``bench.py:580`` ``run_config5``): points,
 #: dimensions, the warm start's subsample, iterations and learning rate,
 #: and the finetune's learning rate
@@ -2454,9 +2521,107 @@ def _per_kind_oracle(X, y, model, leaf_mll):
     return worst, picked
 
 
+def _train_launches(model, per_bucket=None):
+    """``(fused, blocked)`` launches of one evaluation of the training
+    objective and its gradient over ``model``'s size buckets: one blocked
+    launch per leaf chunk of each bucket on the kept route
+    (``fit._kept_recipe``), two where the chunk is evaluated twice (the
+    no-graph and the graph pass of ``make_value_and_grad_bucketed``, taken
+    where ``per_bucket`` or a bucket reaches nmax 4096 as in
+    ``train._train_vg``; a checkpointed chunk recomputed in the backward).
+    The fused kernel never runs in the objective."""
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.train import _per_bucket
+
+    if per_bucket is None:
+        per_bucket = _per_bucket(model)
+    n = 0
+    for b in model.bucket_batches:
+        if fitlib._kept_recipe(model.layout, b):
+            c = fitlib._bucket_chunk(b.nmax, b.num_leaves, b.x.dtype)
+            chunks = -(-b.num_leaves // c)
+            n += 2 * chunks if per_bucket or c < b.num_leaves else 1
+    return 0, n
+
+
+def _finetune_launches(model, cand, W, cand_map=8):
+    """``(fused, blocked)`` launches of one evaluation of the bucketed
+    fine-tune engine (``train.make_finetune_vg_bucketed``, sparse pair
+    list) for the candidates ``cand`` under the weights ``W [C, L]``: per
+    kept-route bucket, one per chunk of (candidate, leaf) pairs of each
+    group of ``cand_map`` candidates in the forward (the chunk rule of
+    ``fit._bucket_chunk``) and one per chunk of its nonzero pairs in the
+    backward (``train._pair_chunk``)."""
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.train import _pair_chunk
+
+    C, n = len(cand), 0
+    for b, ids in zip(model.bucket_batches, model.bucket_spec.leaf_ids):
+        if not fitlib._kept_recipe(model.layout, b):
+            continue
+        for s in range(0, C, cand_map):
+            pairs = (min(s + cand_map, C) - s) * b.num_leaves
+            n += -(-pairs // fitlib._bucket_chunk(b.nmax, pairs, b.x.dtype))
+        nz = int(np.count_nonzero(W[:, ids]))
+        n += -(-nz // _pair_chunk(b.nmax, b.x.dtype))
+    return 0, n
+
+
+def _leaf_batch(model, leaf):
+    """The one-leaf batch of ``leaf`` (a view of its bucket's rows)."""
+    for b, ids in zip(model.bucket_batches, model.bucket_spec.leaf_ids):
+        hit = np.nonzero(ids == leaf)[0]
+        if hit.size:
+            return b.rows(int(hit[0]), int(hit[0]) + 1)
+    raise KeyError(leaf)
+
+
+def _objective_leaves(model):
+    """``{kind: leaf}``: :data:`MIXTURE_WORST_ISO_LINEAR` and the largest
+    leaf of each other kind."""
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    kid = model.plan.leaf_kernelid
+    out = {}
+    for k, kind in enumerate(model.layout.kinds):
+        ids = np.nonzero(kid == k)[0]
+        out[kind] = (MIXTURE_WORST_ISO_LINEAR if kind == "iso_linear"
+                     else int(ids[np.argmax(sizes[ids])]))
+    return out
+
+
+def _leaf_objective(model, leaf):
+    """``(mll, tied gradient, seconds)`` of the training objective
+    (``train._chunk_leaf_mll``) on ``leaf``'s one-leaf batch at the model's
+    hypers, synchronized."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.train import (_chunk_leaf_mll,
+                                                        _value_and_grad)
+
+    one = _leaf_batch(model, leaf)
+    t0 = time.perf_counter()
+    val, g = _value_and_grad(
+        lambda th: _chunk_leaf_mll(model.layout, th, one).sum())(model.theta)
+    torch.cuda.synchronize()
+    return float(val), g.double().cpu().numpy(), time.perf_counter() - t0
+
+
+def _objective_gates(name, obj32, obj64):
+    """Per entry, the float32 objective and gradient against float64 by
+    phase 11's bounds; returns ``(mll errors, gradient errors)``."""
+    mll_rel = {k: abs(obj32[k][0] - obj64[k][0]) / abs(obj64[k][0])
+               for k in obj32}
+    grad_rel = {k: _rel(obj32[k][1], obj64[k][1]) for k in obj32}
+    _gate(f"{name} objective f32 vs f64", mll_rel, SLICE_TOL["evidence_rel"])
+    _gate(f"{name} gradient f32 vs f64", grad_rel, TRAIN_GRAD_TOL)
+    return mll_rel, grad_rel
+
+
 def _mixture_streamed(xt):
-    """Phase 14 at N=100k: the streamed pipeline in float32 (cold, then
-    min of 2 warm) and float64, no kernel, per-kind oracle."""
+    """Phase 14 at N=100k: the streamed pipeline in float32 (cold, then a
+    warm run) and float64, the blocked kernel on every bucket, per-kind
+    oracle; the training objective on three one-leaf batches. Returns the
+    ``(fused, blocked)`` launches of the cold pipeline and the objective."""
     import torch
 
     n = MIXTURE_N
@@ -2489,6 +2654,23 @@ def _mixture_streamed(xt):
         x, y, m32, m32.leaf_mlls().double().cpu().numpy())
     _gate(f"mixture N={n} leaves vs the float64 oracle", oracle,
           ORACLE_TOL["mll_rel"])
+    # the training objective on three one-leaf batches (the kept route: one
+    # blocked launch each), and the light fit's leaf mll at the same hypers
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    picks = _objective_leaves(m32)
+    reset_launches()
+    obj32 = {k: _leaf_objective(m32, l) for k, l in picks.items()}
+    fit_mll = {k: float(fitlib.bucketed_leaf_mlls(
+        m32.layout, m32.theta, [_leaf_batch(m32, l)], [[l]], m32.num_leaves)[l])
+        for k, l in picks.items()}
+    obj_launches = launches()
+    if obj_launches != (0, 2 * len(picks)):
+        raise AssertionError(f"mixture objective launched {obj_launches}")
+    obj_vs_fit = {k: abs(obj32[k][0] - fit_mll[k]) / abs(fit_mll[k])
+                  for k in picks}
+    _gate(f"mixture N={n} objective vs the light fit", obj_vs_fit,
+          OBJECTIVE_FIT_TOL)
     line = dict(leaves=m32.num_leaves, leaves_per_kind={
         k: int((kid == i).sum()) for i, k in enumerate(m32.layout.kinds)},
         leaf_sizes=[int(sizes.min()), int(sizes.max())],
@@ -2503,16 +2685,26 @@ def _mixture_streamed(xt):
     del m32, pipeline
     m64 = mixture_model(n, torch.float64)
     z64, mean64, var64 = light_pipeline(m64, xt)()
+    obj64 = {k: _leaf_objective(m64, l) for k, l in picks.items()}
     del m64
     errs = slice_errors(run32, {"z": z64, "preds": {T_TEST: (mean64, var64)}},
                         sizes=(T_TEST,))
     _gate(f"mixture N={n} f32 vs f64", {k: errs[k] / SLICE_TOL[k]
                                          for k in SLICE_TOL}, 1.0)
+    obj_mll_rel, obj_grad_rel = _objective_gates(f"mixture N={n}", obj32, obj64)
     say(f"mixture_n{n}", **line, evidence_f32=z, evidence_f64=z64,
-        errors_f32_vs_f64=errs, tolerances={"f32": SLICE_TOL,
-                                            "oracle": ORACLE_TOL["mll_rel"]},
+        errors_f32_vs_f64=errs,
+        objective_leaves={k: [l, int(sizes[l])] for k, l in picks.items()},
+        objective_mll_f32_rel_vs_f64=obj_mll_rel,
+        objective_grad_f32_rel_vs_f64=obj_grad_rel,
+        objective_mll_rel_vs_light_fit=obj_vs_fit,
+        objective_s={k: [obj32[k][2], obj64[k][2]] for k in picks},
+        objective_launches=obj_launches,
+        tolerances={"f32": SLICE_TOL, "oracle": ORACLE_TOL["mll_rel"],
+                    "grad_rel": TRAIN_GRAD_TOL,
+                    "objective_vs_fit": OBJECTIVE_FIT_TOL},
         card=card_line())
-    return got
+    return tuple(a + b for a, b in zip(got, obj_launches))
 
 
 def _adam_steps(vg, theta0, steps, lr):
@@ -2540,7 +2732,8 @@ def _mixture_hybrid_train():
     """Phase 14 at N=20k: the hybrid store (the blocked kernel above nmax
     1024, the fused kernel never), tied training steps and one fine-tune
     iteration over every candidate. Returns the ``(fused, blocked)``
-    launches of the hybrid fit and the fine-tune's refit."""
+    launches of the hybrid fit, the tied steps' objective and the
+    fine-tune (its gradient and its refit)."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -2569,10 +2762,13 @@ def _mixture_hybrid_train():
 
     buckets = (m32.plan, m32.bucket_batches, m32.bucket_spec.leaf_ids)
     vg = make_value_and_grad_bucketed(m32.layout, *buckets)
+    step_expected = _train_launches(m32, per_bucket=True)
     reset_launches()
     curve, g32, step_s = _adam_steps(vg, m32.theta, MIXTURE_STEPS, MIXTURE_LR)
-    if launches() != (0, 0):
-        raise AssertionError(f"mixture training launched {launches()}")
+    train_launches = launches()
+    if train_launches != (0, MIXTURE_STEPS * step_expected[1]):
+        raise AssertionError(f"mixture training launched {train_launches}, "
+                             f"expected {MIXTURE_STEPS} x {step_expected}")
     if not np.all(np.diff(curve) > 0):
         raise AssertionError(f"mixture training: the mll does not ascend {curve}")
     vg64 = make_value_and_grad_bucketed(m64.layout, m64.plan, m64.bucket_batches,
@@ -2586,6 +2782,10 @@ def _mixture_hybrid_train():
                              f"grad {grad_rel}")
 
     refit_expected = _refit_launches(m32)
+    L = m32.num_leaves
+    W = _candidate_rows(m32.plan.overlap, np.arange(L))
+    np.fill_diagonal(W, 1.0)
+    ft_expected = _finetune_launches(m32, np.arange(L), W)
     record = []
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2595,16 +2795,15 @@ def _mixture_hybrid_train():
                          progress=False)
     finetune_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    refit = launches()
-    if record[0][1] != (0, 0) or refit != refit_expected:
-        raise AssertionError(f"mixture finetune: launches {record[0][1]} before "
-                             f"and {refit} after the refit, expected "
-                             f"{refit_expected}")
-    L = m32.num_leaves
+    ft_launches = launches()
+    refit = tuple(a - b for a, b in zip(ft_launches, record[0][1]))
+    if record[0][1] != ft_expected or refit != refit_expected:
+        raise AssertionError(f"mixture finetune: launches {record[0][1]} in the "
+                             f"gradient and {refit} in the refit, expected "
+                             f"{ft_expected} and {refit_expected}")
     if not (np.isfinite(hist).all() and m32.theta.shape == (L, m32.layout.total)):
         raise AssertionError(f"mixture finetune: history {hist}")
-    pairs = int(np.count_nonzero(_candidate_rows(m32.plan.overlap,
-                                                 np.arange(L)) + np.eye(L)))
+    pairs = int(np.count_nonzero(W))
     say(f"mixture_n{n}", leaves=L, buckets=len(m32.bucket_batches),
         nmax=[min(m32.bucket_spec.nmaxs), max(m32.bucket_spec.nmaxs)],
         build_s=build_s, hybrid_fit_s=fit_s, launches_hybrid=hybrid_launches,
@@ -2612,16 +2811,17 @@ def _mixture_hybrid_train():
         cached_bytes=cached_bytes,
         predict_s={str(k): v for k, v in predict_s.items()},
         errors_f32_vs_f64=errs, train_route="make_value_and_grad_bucketed",
-        train_mll=curve, train_step_s=step_s, mll_f32_rel_vs_f64=mll_rel,
-        grad_f32_rel_vs_f64=grad_rel,
+        train_mll=curve, train_step_s=step_s, train_launches=train_launches,
+        mll_f32_rel_vs_f64=mll_rel, grad_f32_rel_vs_f64=grad_rel,
         finetune_candidates=L, finetune_pairs=pairs,
         finetune_hist=hist.tolist(),
         finetune_iteration_s=_iteration_seconds(t0, record),
         finetune_s=finetune_s, finetune_peak_memory_bytes=peak,
-        refit_launches=refit,
+        finetune_gradient_launches=record[0][1], refit_launches=refit,
         tolerances={"f32": SLICE_TOL, "grad_rel": TRAIN_GRAD_TOL},
         card=card_line())
-    return tuple(a + b for a, b in zip(hybrid_launches, refit))
+    return tuple(a + b + c for a, b, c in zip(hybrid_launches, train_launches,
+                                              ft_launches))
 
 
 def phase_mixture():
@@ -2661,7 +2861,7 @@ def config5_model(x, y, dtype, V=3, K=4, seed=0):
 def config5_warm_start(x, y, idx, dtype):
     """The warm start of config 5: ``train`` (Adam, lr 5e-2, 15
     iterations) on the subsample model (V=2, K=3, seed 1). Returns the
-    trained model and its seconds."""
+    trained model, its mll history and its seconds."""
     import functools
 
     import torch
@@ -2670,21 +2870,24 @@ def config5_warm_start(x, y, idx, dtype):
 
     msub = config5_model(x[idx], y[idx], dtype, V=2, K=3, seed=1)
     t0 = time.perf_counter()
-    tdsm.train(msub, functools.partial(torch.optim.Adam, lr=CONFIG5_WARM_LR),
-               iterations=CONFIG5_WARM_ITERS, lam=1e-9, randinit=False,
-               progress=False)
+    hist = tdsm.train(msub, functools.partial(torch.optim.Adam,
+                                              lr=CONFIG5_WARM_LR),
+                      iterations=CONFIG5_WARM_ITERS, lam=1e-9, randinit=False,
+                      progress=False)
     torch.cuda.synchronize()
-    return msub, time.perf_counter() - t0
+    return msub, hist, time.perf_counter() - t0
 
 
 def phase_config5():
     """Phase 15, BASELINE config 5 (see the module docstring). Returns the
-    ``(fused, blocked)`` launches of the warm start's refit, the main path
-    (light fit, routed predict) and the fine-tune's refit and predict."""
+    ``(fused, blocked)`` launches of the warm start (its objective and its
+    refit), the main path (light fit, routed predict) and the fine-tune
+    (its gradient, its refit and the predict after it)."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
-    from deepstructuredmixtures_tpu_torch.train import _candidate_rows
+    from deepstructuredmixtures_tpu_torch.train import (
+        _candidate_rows, make_finetune_vg_bucketed)
 
     t_phase = time.perf_counter()
     n_train = CONFIG5_N
@@ -2694,11 +2897,13 @@ def phase_config5():
     build_s = time.perf_counter() - t0
     _no_fused_domain(model, "config 5")
     reset_launches()
-    msub, warm_s = config5_warm_start(x, y, idx, torch.float32)
+    msub, warm_hist, warm_s = config5_warm_start(x, y, idx, torch.float32)
     warm_launches = launches()
-    if warm_launches != _refit_launches(msub):
+    warm_expected = tuple(len(warm_hist) * t + r for t, r in zip(
+        _train_launches(msub), _refit_launches(msub)))
+    if warm_launches != warm_expected:
         raise AssertionError(f"config 5 warm start launched {warm_launches}, "
-                             f"expected {_refit_launches(msub)}")
+                             f"expected {warm_expected}")
     theta = msub.get_params()
     model.set_params(theta)
     if not np.array_equal(model.get_params(), theta):
@@ -2727,11 +2932,14 @@ def phase_config5():
           ORACLE_TOL["mll_rel"])
 
     record = []
-    cand = None
+    cand = np.arange(sizes.size)
     if CONFIG5_FT_CANDIDATES is not None:
         order = np.argsort(sizes, kind="stable")
         cand = np.unique(order[np.linspace(0, sizes.size - 1,
                                            CONFIG5_FT_CANDIDATES).astype(int)])
+    W = _candidate_rows(model.plan.overlap, cand)
+    W[np.arange(cand.size), cand] = 1.0
+    ft_expected = _finetune_launches(model, cand, W)
     reset_launches()
     t_ft = time.perf_counter()
     hist = tdsm.finetune(model, _recording(torch.optim.Adam, record,
@@ -2748,21 +2956,34 @@ def phase_config5():
         raise AssertionError(f"config 5 finetune: history {hist}")
     _finite_moments("config 5 after the finetune", mean_ft, var_ft, T_TEST)
     ft_launches = launches()
-    if record[0][1] != (0, 0) or ft_launches != _refit_and_predict_launches(
+    after = tuple(a - b for a, b in zip(ft_launches, record[0][1]))
+    if record[0][1] != ft_expected or after != _refit_and_predict_launches(
             model):
         raise AssertionError(f"config 5 finetune: launches {record[0][1]} in "
-                             f"the gradient, {ft_launches} with the refit and "
-                             f"predict, expected "
+                             f"the gradient, {after} in the refit and "
+                             f"predict, expected {ft_expected} and "
                              f"{_refit_and_predict_launches(model)}")
-    cand = np.arange(sizes.size) if cand is None else cand
-    rows = _candidate_rows(model.plan.overlap, cand)
-    rows[np.arange(cand.size), cand] = 1.0
-    pairs = int(np.count_nonzero(rows))
+    g32 = record[0][2][torch.as_tensor(cand, device="cuda")]
+    g32 = g32.double().cpu().numpy()
+    pairs = int(np.count_nonzero(W))
     nmaxs = model.bucket_spec.nmaxs
     shapes = _blocked_shapes(model)
     del model
     model64 = config5_model(x, y, torch.float64)
     model64.set_params(theta)
+    # the fine-tune's first evaluation (the candidates' own mlls, their
+    # gradients) at the same hypers in float64
+    t0 = time.perf_counter()
+    H64 = model64.theta.expand(cand.size, -1).contiguous()
+    mll64, G64 = make_finetune_vg_bucketed(
+        model64.layout, model64.plan, model64.bucket_batches,
+        model64.bucket_spec.leaf_ids, sparse=True)(
+            H64, torch.as_tensor(W, device="cuda"))
+    own64 = float(mll64[torch.arange(cand.size), torch.as_tensor(cand)].sum())
+    ft64_s = time.perf_counter() - t0
+    ft_mll_rel, ft_grad_rel = _objective_gates(
+        "config 5 fine-tune", {"candidates": (hist[0], g32)},
+        {"candidates": (own64, G64.cpu().numpy())})
     model64.fit(store="light")
     z64 = model64.update()
     mean64, var64 = model64.predict(xt)
@@ -2784,10 +3005,15 @@ def phase_config5():
         finetune_hist=hist.tolist(),
         finetune_iteration_s=_iteration_seconds(t_ft, record),
         finetune_s=finetune_s, predict_after_finetune_s=predict_ft_s,
+        finetune_gradient_launches=record[0][1],
+        finetune_mll_f32_rel_vs_f64=ft_mll_rel["candidates"],
+        finetune_grad_f32_rel_vs_f64=ft_grad_rel["candidates"],
+        finetune_f64_evaluation_s=ft64_s,
         peak_memory_bytes=peak, evidence_f32=z, evidence_f64=z64,
         errors_f32_vs_f64=errs, oracle_leaf_sizes=sizes[picks].tolist(),
         oracle_mll_rel=oracle, finetune_launches=ft_launches,
-        tolerances={"f32": SLICE_TOL, "oracle": ORACLE_TOL["mll_rel"]},
+        tolerances={"f32": SLICE_TOL, "oracle": ORACLE_TOL["mll_rel"],
+                    "grad_rel": TRAIN_GRAD_TOL},
         card=card_line(),
         seconds=time.perf_counter() - t_phase)
     return tuple(int(a + b + c) for a, b, c in zip(warm_launches, main_launches,
@@ -2821,7 +3047,7 @@ def main():
         fused, blocked = phase_full_store(n_train, kernel)
         fused_launches += fused
         blocked_launches += blocked
-    phase_gp()
+    blocked_launches += phase_gp()[1]
     train_fused, train_blocked = phase_training()
     fused_launches += train_fused
     blocked_launches += train_blocked

@@ -19,6 +19,7 @@ import torch
 from .config import EPS, as_2d, default_dtype
 from .kernels import IsoSE, KernelSpec, gram, gram_diag
 from .means import ConstMean, resolve_mean
+from .ops import potrf
 
 LOG2PI = float(np.log(2.0 * np.pi))
 
@@ -27,21 +28,37 @@ def _unpack(nl: int, theta):
     return theta[:nl], theta[nl], theta[nl + 1]
 
 
+def _mll(Lf, z):
+    """``-(||z||² + logdet + n log 2π) / 2`` from the factor ``Lf [..., n,
+    n]`` and the forward solve ``z = L⁻¹y [..., n]``."""
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(Lf, dim1=-2, dim2=-1)),
+                             dim=-1)
+    return -0.5 * (torch.sum(z * z, dim=-1) + logdet + z.shape[-1] * LOG2PI)
+
+
 def _fit(kind: str, nl: int, theta, x, yc):
     """``(L, mll)`` of the exact GP, ``y'K⁻¹y = ||L⁻¹y||²``. A covariance
     that is not positive definite gives an all-NaN factor, as XLA's
     Cholesky does in the JAX package; the NaN is added rather than written
-    in place, so that autograd runs through it."""
+    in place, so that autograd runs through it. A kernel other than IsoSE
+    on CUDA in float32 above n = 1024 takes the training objective's kept
+    route (``train._KeptLeafMll``: the blocked CUDA kernel's factor, a
+    closed-form float64 backward), as the leaf objective does under
+    ``fit._kept_recipe``; its failed factor is non-finite, its mll NaN."""
     logl, logsigma, lognoise = _unpack(nl, theta)
     K = gram(kind, logl, logsigma, x, x)
     noise = torch.exp(2.0 * lognoise)
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
-    Lf, info = torch.linalg.cholesky_ex(K + (noise + EPS) * eye)
+    Kn = K + (noise + EPS) * eye
+    if kind != "iso_se" and potrf.supported(x.shape[0], x.dtype, x.device):
+        from .train import _KeptLeafMll
+
+        mll, Lf = _KeptLeafMll.apply(Kn[None], yc[None], _mll)
+        return Lf[0], mll[0]
+    Lf, info = torch.linalg.cholesky_ex(Kn)
     Lf = Lf + torch.where(info > 0, torch.nan, 0.0)
     z = torch.linalg.solve_triangular(Lf, yc[:, None], upper=False)[:, 0]
-    mll = -0.5 * (z @ z + 2.0 * torch.sum(torch.log(torch.diagonal(Lf)))
-                  + x.shape[0] * LOG2PI)
-    return Lf, mll
+    return Lf, _mll(Lf, z)
 
 
 def _predict(kind: str, nl: int, full_cov: bool, theta, x, yc, mean, Lf,

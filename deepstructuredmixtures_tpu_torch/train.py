@@ -29,10 +29,14 @@ replicated.
 
 The objective is this module's own leaf mll (:func:`_chunk_leaf_mll`):
 gram, noisy diagonal, a Cholesky whose failure is NaN added out of place,
-forward solve. It never goes through ``fit._factor`` or ``fit.fit_light``:
-their fused CUDA kernel has no backward, and ``cholesky_nosym`` writes its
-NaN into the factor in place, which autograd refuses. Only the refit at
-the end of ``train`` and ``finetune`` runs the CUDA kernels.
+forward solve. It never goes through ``fit._factor``: the fused CUDA kernel
+has no backward, and ``cholesky_nosym`` writes its NaN into the factor in
+place, which autograd refuses. Where the streamed fit takes the kept route
+(``fit._kept_recipe``: CUDA, float32, nmax above 1024, any kernel set but
+a single IsoSE) the objective takes it too (:class:`_KeptLeafMll`): the
+blocked CUDA kernel's factor and the light fit's leaf mll forward, a
+closed-form float64 backward. Elsewhere only the refit at the end of
+``train`` and ``finetune`` runs the CUDA kernels.
 
 Memory: gradients are evaluated leaf chunk by leaf chunk (the memory rule
 of ``fit._bucket_chunk``), each chunk's graph freed before the next, so
@@ -53,6 +57,7 @@ from .fit import _noisy_gram
 from .gp import _fit
 from .leafgp import LeafBatch, centered_y, leaf_mll_forward
 from .ops import cholesky as chol
+from .ops import potrf
 from .plan import MixtureOverlap, SPNPlan
 
 __all__ = ["train", "train_gp", "finetune", "make_mll_fn",
@@ -127,11 +132,60 @@ def _cholesky(Kn):
     return Lf + torch.where(info > 0, torch.nan, 0.0)[..., None, None]
 
 
+class _KeptLeafMll(torch.autograd.Function):
+    """``(mll [C], factors [C, n, n])`` of the noisy grams ``Kn [C, n, n]``
+    on the kept route, differentiable in ``Kn``; ``mll_of(Lf, z)`` is the
+    caller's mll from the factors and the forward solve ``z = L⁻¹y``.
+
+    Forward as ``fit.fit_light`` computes it there: the blocked CUDA kernel
+    (``ops.potrf.blocked_cholesky``; its plain version on a CPU tensor)
+    factors a copy of ``Kn`` in place, then the forward solve in the grams'
+    dtype. So the objective's value is the light fit's leaf mll.
+
+    Backward in closed form, ``∂mll/∂Kn = ½ (α αᵀ − Kn⁻¹)`` with ``α =
+    L⁻ᵀ z``, in float64 against the factor, scaled per leaf by the incoming
+    gradient and cast to ``Kn``'s dtype: autograd's float32 Cholesky
+    backward would give away the accuracy of the blocked factor on leaves
+    whose condition number is about 1e5. Padded rows and columns of ``Kn``
+    are constants of ``chol.masked_gram_noise``, so what lands there goes
+    nowhere. A leaf that is not positive definite gets a NaN mll and a NaN
+    gradient, as from :func:`_cholesky`. The factors carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, Kn, yc, mll_of):
+        Lf = potrf.blocked_cholesky(Kn.clone(memory_format=torch.contiguous_format))
+        z = chol.solve_lower(Lf, yc[..., None])[..., 0]
+        mll = mll_of(Lf, z)
+        mll = torch.where(torch.isfinite(mll), mll, torch.nan)
+        ctx.mark_non_differentiable(Lf)
+        ctx.save_for_backward(Lf, yc, mll)
+        return mll, Lf
+
+    @staticmethod
+    def backward(ctx, g, _):
+        Lf, yc, mll = ctx.saved_tensors
+        L64 = Lf.double()
+        z = chol.solve_lower(L64, yc.double()[..., None])
+        a = torch.linalg.solve_triangular(L64.mT, z, upper=True)  # α [C, n, 1]
+        G = torch.cholesky_inverse(L64)
+        del L64
+        G.baddbmm_(a, a.mT, alpha=-1.0)  # Kn⁻¹ − α αᵀ
+        scale = torch.where(torch.isfinite(mll), -0.5 * g.double(), torch.nan)
+        return G.mul_(scale[:, None, None]).to(Lf.dtype), None, None
+
+
 def _chunk_leaf_mll(layout, theta, batch: LeafBatch):
     """mll of every leaf in ``batch`` under hypers ``theta`` (``[P]`` or
-    per-leaf ``[C, P]``). Forward solve only: ``y'α = ||L⁻¹y||²``."""
-    Lf = _cholesky(_noisy_gram(layout, theta, batch))
-    z = chol.solve_lower(Lf, centered_y(batch)[..., None])[..., 0]
+    per-leaf ``[C, P]``). Forward solve only: ``y'α = ||L⁻¹y||²``. Under
+    ``fit._kept_recipe`` through :class:`_KeptLeafMll`, else through
+    :func:`_cholesky` and autograd."""
+    Kn = _noisy_gram(layout, theta, batch)
+    yc = centered_y(batch)
+    if fitlib._kept_recipe(layout, batch):
+        return _KeptLeafMll.apply(
+            Kn, yc, lambda Lf, z: leaf_mll_forward(Lf, z, batch))[0]
+    Lf = _cholesky(Kn)
+    z = chol.solve_lower(Lf, yc[..., None])[..., 0]
     return leaf_mll_forward(Lf, z, batch)
 
 
@@ -461,6 +515,12 @@ def _pair_mlls(layout, H, batch: LeafBatch, jq, iq, chunk: int):
         for s in range(0, jq.numel(), chunk)])
 
 
+def _pair_chunk(nmax: int, dtype) -> int:
+    """Pairs per backward chunk of :func:`make_finetune_vg_bucketed`:
+    about six ``[nmax, nmax]`` buffers per pair within 2 GiB, at most 64."""
+    return max(1, min(64, (2 << 30) // (6 * nmax ** 2 * dtype.itemsize)))
+
+
 def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
                               budget: int = 2 << 30, mesh=None,
                               axis: str = "experts", cand_map: int = 8,
@@ -578,8 +638,7 @@ def make_finetune_vg_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
         G = torch.zeros_like(H)
         for (b, idx), pairs in zip(buckets, pair_lists(W)):
             jj, ii, keep = my_pairs(*pairs)
-            bs = max(1, min(64, (2 << 30)
-                            // (6 * b.nmax ** 2 * b.x.dtype.itemsize)))
+            bs = _pair_chunk(b.nmax, b.x.dtype)
             for s in range(0, jj.numel(), bs):
                 j, i = jj[s:s + bs], ii[s:s + bs]
                 Hq = H[j].requires_grad_(True)

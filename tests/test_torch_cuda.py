@@ -389,3 +389,95 @@ def test_cuda_streamed_iso_linear_leaf_within_float32_bounds(cuda_device):
         mll[dtype] = float(gp.leaf_mlls()[0])
     assert abs(mll[torch.float32] - mll[torch.float64]) <= 1e-3 * abs(
         mll[torch.float64])
+
+
+def _objective_within_float32_bounds(out):
+    """``out[dtype] = (value, gradient)``: the float32 objective within 1e-3
+    of float64 (relative) and its gradient within 1e-2 relative in norm,
+    the bounds of ``chip_smoke.py``'s training phase."""
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    mll_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = np.linalg.norm(g32 - g64) / np.linalg.norm(g64)
+    print(f"mll_f32_rel_vs_f64={mll_rel:.3e} grad_f32_rel_vs_f64={grad_rel:.3e}")
+    assert mll_rel <= 1e-3, (v32, v64)
+    assert grad_rel <= 1e-2, (g32, g64)
+
+
+def _iso_linear_leaf_data():
+    """The 7,600-point IsoLinear leaf at x in [0.75, 0.82] (the worst leaf
+    of the N=100k mixture)."""
+    rng = np.random.default_rng(11)
+    x = np.sort(rng.uniform(0.75, 0.82, 7600)).reshape(-1, 1)
+    return x, np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, 0.2, 7600)
+
+
+@pytest.mark.cuda
+def test_cuda_training_objective_iso_linear_leaf_within_float32_bounds(
+        cuda_device):
+    """``train._train_vg`` on the 7,600-point IsoLinear leaf in float32
+    against float64. The objective takes the kept route
+    (``train._KeptLeafMll``): the blocked kernel once in the no-graph pass
+    and once in the graph pass. cuSOLVER's float32 factor, which it took
+    before, missed this leaf's mll by 21% on an H100."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.train import _train_vg
+
+    x, y = _iso_linear_leaf_data()
+    out, launched = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        m = tdsm.build_dsmgp(x, y, V=1, K=1, M=8000, kernel=tdsm.IsoLinear(0.0),
+                             log_noise=-1.0, seed=0, device=cuda_device,
+                             dtype=dtype, do_fit=False, overlap=False)
+        assert m.num_leaves == 1
+        before = potrf.LAUNCHES
+        val, g = _train_vg(m)(m.theta)
+        torch.cuda.synchronize()
+        launched[dtype] = potrf.LAUNCHES - before
+        out[dtype] = (float(val), g.double().cpu().numpy())
+    _objective_within_float32_bounds(out)
+    assert launched == {torch.float32: 2, torch.float64: 0}
+
+
+@pytest.mark.cuda
+def test_cuda_training_objective_ard_se_leaf_within_float32_bounds(cuda_device):
+    """The objective of one 4-D ArdSE leaf of BASELINE config 5 (leaf 28,
+    n=11,491) under its warm-start hypers, value and tied gradient, in
+    float32 against float64: the kept route, one blocked launch.
+    cuSOLVER's float32 factor missed this leaf's mll by 75% on an H100."""
+    import chip_chol_routes
+    import chip_smoke
+
+    x, y, _, _ = chip_smoke.config5_data()
+    out, launched = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        m = chip_smoke.config5_model(x, y, dtype)
+        m.set_params(np.asarray(chip_chol_routes.CONFIG5_HYPERS))
+        assert int(chip_smoke._leaf_batch(m, 28).n[0]) == 11491
+        before = potrf.LAUNCHES
+        out[dtype] = chip_smoke._leaf_objective(m, 28)[:2]
+        launched[dtype] = potrf.LAUNCHES - before
+        del m
+    _objective_within_float32_bounds(out)
+    assert launched == {torch.float32: 1, torch.float64: 0}
+
+
+@pytest.mark.cuda
+def test_cuda_gp_iso_linear_mll_and_grad_within_float32_bounds(cuda_device):
+    """``GaussianProcess(kernel=IsoLinear)`` on the 7,600-point leaf: its
+    mll and ``grad_mll`` in float32 against float64. The float32 fit and
+    gradient take the kept route, one blocked launch each."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = _iso_linear_leaf_data()
+    out, launched = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoLinear(0.0),
+                                  log_noise=-1.0, device=cuda_device,
+                                  dtype=dtype)
+        before = potrf.LAUNCHES
+        mll, g = gp.mll(), gp.grad_mll()
+        torch.cuda.synchronize()
+        launched[dtype] = potrf.LAUNCHES - before
+        out[dtype] = (mll, g.double().cpu().numpy())
+    _objective_within_float32_bounds(out)
+    assert launched == {torch.float32: 2, torch.float64: 0}

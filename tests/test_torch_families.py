@@ -26,6 +26,7 @@ from deepstructuredmixtures_tpu_torch import fit as tfit
 from deepstructuredmixtures_tpu_torch import infer as tinfer
 from deepstructuredmixtures_tpu_torch.ops import potrf
 
+from .session_refs import once
 from .torch_threads import one_torch_thread  # noqa: F401
 
 jtrain = importlib.import_module("deepstructuredmixtures_tpu.train")
@@ -192,53 +193,58 @@ def test_oracle_leaf_matches_bench_and_jax(poe_runs):
 # Kernel-mixture leaves
 # ---------------------------------------------------------------------------
 
-def _mixture_pair():
-    """The phase's mixture on 300 of the toy points (V=2, K=2, M=40), both
-    packages with the sparse ``MixtureOverlap``."""
-    kw = dict(V=2, K=2, M=40, log_noise=-1.0, seed=0, do_fit=False,
-              overlap_format="sparse")
-    x, y = X[::4], Y[::4]
-    jm = dsm.build_dsmgp(x, y, kernel=[dsm.IsoSE(0.0, 0.0), dsm.ArdSE([0.0], 0.0),
-                                       dsm.IsoLinear(0.0)], **kw)
-    tm = tdsm.build_dsmgp(x, y, kernel=chip_smoke.mixture_kernels(),
-                          device="cpu", **kw)
-    return jm, tm
+#: the phase's mixture on 300 of the toy points (V=2, K=2, M=40), both
+#: packages with the sparse ``MixtureOverlap``
+MIXTURE_KW = dict(V=2, K=2, M=40, log_noise=-1.0, seed=0, do_fit=False,
+                  overlap_format="sparse")
 
 
-@pytest.fixture(scope="module")
-def mixture_runs():
+def mixture_port():
+    return tdsm.build_dsmgp(X[::4], Y[::4], kernel=chip_smoke.mixture_kernels(),
+                            device="cpu", **MIXTURE_KW)
+
+
+def mixture_jax_refs():
     """JAX's mixture: light fit → update → predict; the tied value and
     gradient; one bucketed fine-tune iteration (sparse pair list) and its
-    per-leaf hypers."""
-    jm, tm = _mixture_pair()
+    per-leaf hypers. Shared by ``tests/test_torch_objective.py`` through
+    ``session_refs.once(..., "mixture_jax", ...)``."""
+    jm = dsm.build_dsmgp(X[::4], Y[::4], kernel=[
+        dsm.IsoSE(0.0, 0.0), dsm.ArdSE([0.0], 0.0), dsm.IsoLinear(0.0)],
+        **MIXTURE_KW)
     jm.fit(store="light")
     jz = jm.update()
-    jpred = jm.predict(XT)
+    mean, var = jm.predict(XT)
     vg = jtrain.make_value_and_grad_bucketed(jm.layout, jm.plan, jm.bucket_batches,
                                              jm.bucket_spec.leaf_ids)
     jv, jg = vg(jm.theta)
     jhist = dsm.finetune(jm, optax.adam(1e-2), iterations=1, lam=1e-9,
                          bucketed=True, sparse=True, leaves=_tuned(jm),
                          progress=False)
-    return dict(tm=tm, z=jz, pred=jpred, vg=(float(jv), np.asarray(jg)),
-                hist=np.asarray(jhist), theta=np.asarray(jm.theta))
+    return dict(z=jz, mean=mean, var=var, v=jv, g=jg, hist=jhist,
+                theta=jm.theta)
+
+
+@pytest.fixture(scope="module")
+def mixture_runs(tmp_path_factory):
+    return once(tmp_path_factory, "mixture_jax", mixture_jax_refs)
 
 
 def test_mixture_fit_predict_train_and_finetune_match_jax(mixture_runs):
     r = mixture_runs
-    tm = r["tm"]
+    tm = mixture_port()
     assert isinstance(tm.plan.overlap, tdsm.plan.MixtureOverlap)
     assert tm.layout.kinds == ("iso_se", "ard_se", "iso_linear")
     tm.fit(store="light")
     _close(tm.update(), r["z"])
-    for t, j in zip(tm.predict(XT), r["pred"]):
+    for t, j in zip(tm.predict(XT), (r["mean"], r["var"])):
         _close(t, j)
     vg = ttrain.make_value_and_grad_bucketed(tm.layout, tm.plan,
                                              tm.bucket_batches,
                                              tm.bucket_spec.leaf_ids)
     v, g = vg(tm.theta)
-    _close(v, r["vg"][0])
-    _close(g, r["vg"][1])
+    _close(v, r["v"])
+    _close(g, r["g"])
     hist = tdsm.finetune(tm, _adam(1e-2), iterations=1, lam=1e-9, bucketed=True,
                          sparse=True, leaves=_tuned(tm), progress=False)
     _close(hist, r["hist"])
@@ -289,17 +295,21 @@ def test_streamed_route_off_iso_se_is_the_hybrid_stores(monkeypatch, kernels):
 def test_mixture_hybrid_store_matches_light(mixture_runs):
     """The phase's N=20k path on the toy tree: the hybrid store (every
     bucket cached) predicts what the light store predicts."""
-    _, tm = _mixture_pair()
+    tm = mixture_port()
     tm.fit(store="hybrid")
     assert all(f is not None for f in tm._bucket_factors)
     _close(tm.update(), mixture_runs["z"])
-    for t, j in zip(tm.predict(XT), mixture_runs["pred"]):
+    for t, j in zip(tm.predict(XT), (mixture_runs["mean"], mixture_runs["var"])):
         _close(t, j)
 
 
 # ---------------------------------------------------------------------------
 # BASELINE config 5: additive ArdSE on 4-D data
 # ---------------------------------------------------------------------------
+
+#: config 5's data at a toy size
+CONFIG5_TOY = chip_smoke.config5_data(n=500, sub=200, t=40)
+
 
 def _config5(pkg, x, y, device=None, **kw):
     kernel = pkg.ArdSE([0.0] * x.shape[1], 0.0)
@@ -309,12 +319,16 @@ def _config5(pkg, x, y, device=None, **kw):
 
 
 @pytest.fixture(scope="module")
-def config5_runs():
+def config5_runs(tmp_path_factory):
+    return once(tmp_path_factory, "config5_jax", _config5_jax_refs)
+
+
+def _config5_jax_refs():
     """JAX's config-5 workflow on a toy tree: a 2-iteration warm start
     (Adam 5e-2) on the subsample model, the hypers carried across trees,
     light fit → update → predict, one bucketed fine-tune iteration (Adam
     1e-2, sparse pair list) and predict again."""
-    x, y, idx, xt = chip_smoke.config5_data(n=500, sub=200, t=40)
+    x, y, idx, xt = CONFIG5_TOY
     jm = _config5(dsm, x, y, V=2, K=2, seed=0)
     jsub = _config5(dsm, x[idx], y[idx], V=2, K=2, seed=1)
     whist = dsm.train(jsub, optax.adam(5e-2), iterations=2, lam=1e-9,
@@ -326,15 +340,14 @@ def config5_runs():
     hist = dsm.finetune(jm, optax.adam(1e-2), iterations=1, lam=1e-9,
                         bucketed=True, sparse=True, leaves=_tuned(jm),
                         progress=False)
-    return dict(data=(x, y, idx, xt), whist=np.asarray(whist),
-                warm=np.asarray(jsub.get_params()), z=z, pred=pred,
-                hist=np.asarray(hist), theta=np.asarray(jm.theta),
-                pred_ft=jm.predict(xt))
+    (mean, var), (mean_ft, var_ft) = pred, jm.predict(xt)
+    return dict(whist=whist, warm=jsub.get_params(), z=z, mean=mean, var=var,
+                hist=hist, theta=jm.theta, mean_ft=mean_ft, var_ft=var_ft)
 
 
 def test_config5_workflow_matches_jax(config5_runs):
     r = config5_runs
-    x, y, idx, xt = r["data"]
+    x, y, idx, xt = CONFIG5_TOY
     tm = _config5(tdsm, x, y, device="cpu", V=2, K=2, seed=0)
     tsub = _config5(tdsm, x[idx], y[idx], device="cpu", V=2, K=2, seed=1)
     whist = tdsm.train(tsub, _adam(5e-2), iterations=2, lam=1e-9,
@@ -345,14 +358,14 @@ def test_config5_workflow_matches_jax(config5_runs):
     np.testing.assert_array_equal(tm.get_params(), tsub.get_params())
     tm.fit(store="light")
     _close(tm.update(), r["z"])
-    for t, j in zip(tm.predict(xt), r["pred"]):
+    for t, j in zip(tm.predict(xt), (r["mean"], r["var"])):
         _close(t, j)
     hist = tdsm.finetune(tm, _adam(1e-2), iterations=1, lam=1e-9, bucketed=True,
                          sparse=True, leaves=_tuned(tm), progress=False)
     _close(hist, r["hist"])
     _close(tm.theta, r["theta"])
     mean, var = tm.predict(xt)
-    for t, j in zip((mean, var), r["pred_ft"]):
+    for t, j in zip((mean, var), (r["mean_ft"], r["var_ft"])):
         _close(t, j)
     assert torch.isfinite(mean).all() and (var > 0).all()
 

@@ -19,6 +19,7 @@ from deepstructuredmixtures_tpu_torch.kernels import gram
 from deepstructuredmixtures_tpu_torch.ops import fused_chol
 
 from .test_torch_cuda import TOL, check_contract, kernel_inputs
+from .torch_threads import one_torch_thread  # noqa: F401
 
 
 def _oracle(xl, logl, logsigma, noise, eps=1e-8):

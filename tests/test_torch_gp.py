@@ -13,6 +13,7 @@ import deepstructuredmixtures_tpu_torch as tdsm
 from deepstructuredmixtures_tpu_torch import convert
 
 from .oracle import OracleGP
+from .torch_threads import one_torch_thread  # noqa: F401
 
 rng = np.random.default_rng(1)
 N = 40

@@ -8,6 +8,8 @@ import torch
 import deepstructuredmixtures_tpu as dsm
 import deepstructuredmixtures_tpu_torch as tdsm
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 # (seed, N, D, kernel mixture?[, depth]) — three 1-D headline-like trees,
 # one 2-D kernel-mixture tree (leaf-level sums draw Dirichlet weights from
 # the same RNG stream), and the N=20k tree at depth 3 (1,728 leaves, eight

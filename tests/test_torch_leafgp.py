@@ -4,6 +4,7 @@ fit+predict of one bucket. Inputs come from a NumPy seed and cross as
 NumPy arrays. Tolerances: rtol 1e-12 for single expressions, 1e-10 where
 a Cholesky and solves sit in between (LAPACK in both, called through
 different wrappers)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,8 @@ from deepstructuredmixtures_tpu_torch import hyper as thyper
 from deepstructuredmixtures_tpu_torch import kernels as tkern
 from deepstructuredmixtures_tpu_torch import leafgp as tleaf
 from deepstructuredmixtures_tpu_torch.ops import cholesky as tchol
+
+from .torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ("iso_se", "ard_se", "iso_linear", "ard_linear")
 
@@ -135,9 +138,13 @@ def test_streamed_leaf_predict_one_bucket_matches_jax(bucket_models, per_leaf):
     xt = np.linspace(-0.05, 1.05, 300).reshape(-1, 1)
     tidx, tmask = jm._route(xt)
     ids = jm.bucket_spec.leaf_ids[k]
-    mu_j, var_j, mll_j = jfit.streamed_leaf_predict(
-        jm.layout, jnp.asarray(theta), jb, jnp.asarray(xt),
-        jnp.asarray(tidx[ids]), jnp.asarray(tmask[ids]), chunk=3)
+    # one jitted program (op by op, JAX's dispatch took tens of seconds
+    # beside the suite's busy workers)
+    mu_j, var_j, mll_j = jax.jit(
+        jfit.streamed_leaf_predict, static_argnums=0,
+        static_argnames="chunk")(
+            jm.layout, jnp.asarray(theta), jb, jnp.asarray(xt),
+            jnp.asarray(tidx[ids]), jnp.asarray(tmask[ids]), chunk=3)
     mu_t, var_t, mll_t = tfit.streamed_leaf_predict(
         tm.layout, _t(theta), tb, _t(xt),
         torch.as_tensor(tidx[ids], dtype=torch.long), chunk=3)

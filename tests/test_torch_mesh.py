@@ -1,6 +1,6 @@
 """The port's multi-device path against the JAX package, in float64 on the
 CPU: a world of 4 gloo ranks (``tests/torch_mesh_ranks.py``, spawned once
-for the module) against the JAX package on ``jax.sharding`` meshes of 4 of
+per test session) against the JAX package on ``jax.sharding`` meshes of 4 of
 the 8 fake CPU devices of ``tests/conftest.py``, with the same blocks.
 
 Held at 1e-10 (relative to ``max(1, |value|)`` for mlls) to the JAX
@@ -50,6 +50,7 @@ import deepstructuredmixtures_tpu_torch as tdsm
 from deepstructuredmixtures_tpu_torch import parallel as tparallel
 
 from . import torch_mesh_ranks as R
+from .session_refs import once
 
 WORLD = 4
 TOL, TRAJ_TOL = 1e-10, 1e-8
@@ -227,7 +228,23 @@ def _jax_refs():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """``(port, jax)``: the ranks' results (rank 0's ``npz``) and the JAX
-    references, computed while the ranks run."""
+    references, computed while the ranks run, once per test session
+    (``session_refs.once``: the ranks are spawned once, not once per
+    worker that runs a test of this module)."""
+    flat = once(tmp_path_factory, "mesh_runs",
+                lambda: _flat(*_spawn_ranks_and_refs(tmp_path_factory)))
+    port = {k[6:]: v for k, v in flat.items() if k.startswith("port__")}
+    ref = {k[5:]: str(v) if v.dtype.kind == "U" else v
+           for k, v in flat.items() if k.startswith("ref__")}
+    return port, ref
+
+
+def _flat(port, ref):
+    return {**{f"port__{k}": v for k, v in port.items()},
+            **{f"ref__{k}": v for k, v in ref.items()}}
+
+
+def _spawn_ranks_and_refs(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh")
     out = str(d / "out{}.npz")
     log = open(d / "finetune.log", "w+")

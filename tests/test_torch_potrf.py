@@ -20,6 +20,7 @@ import deepstructuredmixtures_tpu_torch  # noqa: F401  (sets the TF32 flags)
 from deepstructuredmixtures_tpu_torch.ops import potrf
 
 from .test_torch_cuda import POTRF_TOL, check_potrf_contract, spd_batch
+from .torch_threads import one_torch_thread  # noqa: F401
 
 
 def _oracle_err(out, A):

@@ -23,6 +23,7 @@ from deepstructuredmixtures_tpu_torch import fit as tfit
 from deepstructuredmixtures_tpu_torch.ops import cholesky as tchol
 from deepstructuredmixtures_tpu_torch.ops import refine as trefine
 
+from .session_refs import once
 from .test_refine import LOG_NOISE, X, Y
 from .torch_threads import one_torch_thread  # noqa: F401
 
@@ -69,20 +70,54 @@ def _streamed(m, steps, xt, jax_side):
     return tuple(_np(a) for a in out)
 
 
-@pytest.fixture(scope="module")
-def f64():
-    """Float64 models of both packages: the streamed refined leaf moments at
-    17 points, and ``predict(refine_steps=2)`` after a fit and an update at
-    31 points."""
+def _joint_inputs(tm):
+    """``refine_joint``'s inputs on the port's most populous bucket ``k``: a
+    perturbed start (the float32 factor and solves cast up to float64), so
+    that the two steps do real work."""
+    k = int(np.argmax([b.num_leaves for b in tm.bucket_batches]))
+    tb = tm.bucket_batches[k]
+    Kn = tfit._noisy_gram(tm.layout, tm.theta, tb)
+    Lf = tchol.cholesky_nosym(Kn.float()).double()
+    Knt = torch.where(tb.mask[:, :, None],
+                      tfit.leaf_gram(tm.layout, tm.theta, tb, torch.as_tensor(XT)),
+                      0.0)
+    rhs = torch.cat([tfit.centered_y(tb)[..., None], Knt], dim=-1)
+    Z = tchol.solve_lower(Lf.float(), rhs.float()).double()
+    return k, Lf, Z[..., 0], Z[..., 1:]
+
+
+def _f64_refs():
+    """Both packages' float64 models: the streamed refined leaf moments at
+    17 points; ``predict(refine_steps=2)`` after a fit and an update at 31
+    points; ``refine_joint`` on :func:`_joint_inputs` (JAX's, and the
+    inputs)."""
     jm, tm = _jax_model(), _port_model()
-    res = {"streamed": (_streamed(jm, 2, XT, True), _streamed(tm, 2, XT, False))}
+    out = {}
+    for side, m, j in (("j", jm, True), ("t", tm, False)):
+        for name, a in zip(("mu", "var", "mll"), _streamed(m, 2, XT, j)):
+            out[f"streamed_{side}_{name}"] = a
     jm.fit(method="batched")
     jm.update()
     tm.fit(store="light")
     tm.update()
-    res["predict"] = (tuple(_np(a) for a in jm.predict(XT31, refine_steps=2)),
-                      tuple(_np(a) for a in tm.predict(XT31, refine_steps=2)))
-    return jm, tm, res
+    for side, m in (("j", jm), ("t", tm)):
+        for name, a in zip(("mean", "var"), m.predict(XT31, refine_steps=2)):
+            out[f"predict_{side}_{name}"] = _np(a)
+    k, Lf, z, V = _joint_inputs(tm)
+    jax_refine = jax.jit(jrefine.refine_joint, static_argnums=(0, 7))
+    for name, a in zip(("mu", "var", "mll"), jax_refine(
+            jm.layout, jm.theta, jm.bucket_batches[k], jnp.asarray(_np(Lf)),
+            jnp.asarray(_np(z)), jnp.asarray(_np(V)), jnp.asarray(XT), 2)):
+        out[f"joint_j_{name}"] = a
+    out.update(joint_k=k, joint_Lf=_np(Lf), joint_z=_np(z), joint_V=_np(V))
+    return out
+
+
+@pytest.fixture(scope="module")
+def f64(tmp_path_factory):
+    """The port's float64 model and :func:`_f64_refs`, computed once per
+    test session (``session_refs.once``)."""
+    return _port_model(), once(tmp_path_factory, "refine_f64", _f64_refs)
 
 
 # ---------------------------------------------------------------------------
@@ -93,26 +128,17 @@ def f64():
 def test_refine_joint_matches_jax(f64):
     """Both packages' ``refine_joint`` on the same inputs: one bucket's leaf
     chunk and, in float64, a perturbed start (the float32 factor and
-    solves cast up), so that the two steps do real work."""
-    jm, tm, _ = f64
-    k = int(np.argmax([b.num_leaves for b in tm.bucket_batches]))
-    tb, jb = tm.bucket_batches[k], jm.bucket_batches[k]
-    Kn = tfit._noisy_gram(tm.layout, tm.theta, tb)
-    Lf = tchol.cholesky_nosym(Kn.float()).double()
+    solves cast up, :func:`_joint_inputs`), so that the two steps do real
+    work."""
+    tm, ref = f64
+    k = int(ref["joint_k"])
+    tb = tm.bucket_batches[k]
+    Lf, z, V = (torch.from_numpy(ref[f"joint_{n}"]) for n in ("Lf", "z", "V"))
     xt = torch.as_tensor(XT)
-    Knt = torch.where(tb.mask[:, :, None],
-                      tfit.leaf_gram(tm.layout, tm.theta, tb, xt), 0.0)
-    rhs = torch.cat([tfit.centered_y(tb)[..., None], Knt], dim=-1)
-    Z = tchol.solve_lower(Lf.float(), rhs.float()).double()
-    z, V = Z[..., 0], Z[..., 1:]
     port = trefine.refine_joint(tm.layout, tm.theta, tb, Lf, z, V, xt, 2)
-    jax_refine = jax.jit(jrefine.refine_joint, static_argnums=(0, 7))
-    jax_out = jax_refine(jm.layout, jm.theta, jb, jnp.asarray(_np(Lf)),
-                         jnp.asarray(_np(z)), jnp.asarray(_np(V)),
-                         jnp.asarray(XT), 2)
-    for p, j in zip(port, jax_out):
+    for p, name in zip(port, ("mu", "var", "mll")):
         assert p.dtype == torch.float64
-        _close(p, j)
+        _close(p, ref[f"joint_j_{name}"])
     # the start was 1e-4 off; refinement moved the mean by about that much
     mu0 = tb.mean[:, None] + torch.einsum("cnt,cn->ct", V, z)
     assert float((port[0] - mu0).abs().max()) > 1e-7
@@ -120,25 +146,22 @@ def test_refine_joint_matches_jax(f64):
 
 @pytest.mark.parametrize("what", ["mu", "var", "mll"])
 def test_bucketed_streamed_predict_refined_matches_jax(f64, what):
-    _, _, res = f64
-    j, p = res["streamed"]
-    i = ["mu", "var", "mll"].index(what)
-    assert p[i].dtype == np.float64
-    _close(p[i], j[i])
+    _, ref = f64
+    p = ref[f"streamed_t_{what}"]
+    assert p.dtype == np.float64
+    _close(p, ref[f"streamed_j_{what}"])
 
 
 @pytest.mark.parametrize("what", ["mean", "var"])
 def test_predict_refined_matches_jax(f64, what):
-    _, _, res = f64
-    j, p = res["predict"]
-    i = ["mean", "var"].index(what)
-    _close(p[i], j[i])
+    _, ref = f64
+    _close(ref[f"predict_t_{what}"], ref[f"predict_j_{what}"])
 
 
 def test_row_chunk_does_not_change_the_result(f64):
     """Row blocks of 7 rows (every bucket's gram in many blocks, the last
     one short) give the default's result."""
-    _, tm, _ = f64
+    tm, _ = f64
     b = tm.bucket_batches[0]
     xt = torch.as_tensor(XT)
     Lf = tfit._factor(tm.layout, tm.theta, b)
@@ -165,7 +188,7 @@ def test_refined_predict_streams_on_every_store(f64, monkeypatch):
     hybrid stores too (the same prediction as on the light store), and
     ``return_var=False`` with an alpha cache does not take the mean-only
     path."""
-    _, tm, _ = f64
+    tm, _ = f64
     tm.fit(store="light")
     tm.update()
     want = tm.predict(XT31, refine_steps=1)

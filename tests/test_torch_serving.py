@@ -28,6 +28,7 @@ from deepstructuredmixtures_tpu_torch.serve import (
 )
 
 from .test_torch_slice import RTOL, _data
+from .torch_threads import one_torch_thread  # noqa: F401
 
 COMMON = dict(M=30, log_noise=-1.0, seed=0, do_fit=False)
 XT = np.linspace(-0.05, 1.05, 400).reshape(-1, 1)

@@ -45,6 +45,8 @@ from deepstructuredmixtures_tpu_torch.ops import cholesky as tchol
 from deepstructuredmixtures_tpu_torch.ops import fused_chol
 from deepstructuredmixtures_tpu_torch.tree import LeafNode, SumNode
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 
 # the data of tests/test_fit.py

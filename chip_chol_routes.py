@@ -3,9 +3,10 @@
 
     python3 chip_chol_routes.py
 
-Two measurements behind ``fit._kept_recipe`` (a single IsoSE kernel
-streams with cuSOLVER and float32 solves; every other kernel set with the
-blocked kernel and float64 solves):
+Measurements behind ``fit._kept_recipe`` (the streamed path factors a
+float32 bucket above nmax 1024 with the blocked kernel and solves in
+float64 against it, whatever the kernel set; a single IsoSE used to
+keep cuSOLVER and float32 solves):
 
 1. ``leaves``: one large leaf of each kind, the noisy gram built by the
    port in float32 and factored by ``torch.linalg.cholesky_ex`` (the
@@ -24,11 +25,24 @@ blocked kernel and float64 solves):
    (the route now): root evidence relative, mean absolute, variance
    relative, and the pipeline's seconds.
 
+With ``--frontier`` instead:
+
+3. ``frontier``: the three largest sampled leaves of the scale frontier's
+   depth-4 trees at N=500k and N=1M (``chip_smoke.py`` phase 16, leaves
+   up to 33,303 points), the port's float32 noisy gram factored by
+   cuSOLVER (a single IsoSE's former route) and by the blocked kernel, each
+   with float32 and with float64 solves (``fit._moments``), and by
+   cuSOLVER in float64: the leaf mll, the routed mean and variance against
+   the seed file's float64 oracle (the phase's gates), each factor's
+   backward error ``max |L L' - K|`` against the float64 gram of the same
+   float32 inputs and its milliseconds.
+
 One JSON line each, then the card's name and power limit. Needs a CUDA
 device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -99,6 +113,19 @@ def leaf_routes(label, m32, m64, leaf):
     print(json.dumps(rec), flush=True)
 
 
+def cusolver_factor(layout, theta, batch):
+    """The streamed factor with cuSOLVER in the blocked kernel's place:
+    the fused kernel where it applies, else ``cholesky_nosym``
+    (``torch.linalg.cholesky_ex``) on the noisy gram."""
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.ops import chol
+
+    Lf = fitlib._maybe_fused_chol(layout, theta, batch)
+    if Lf is not None:
+        return Lf
+    return chol.cholesky_nosym(fitlib._noisy_gram(layout, theta, batch))
+
+
 def pipeline_routes(label, make, xt):
     """The float32 streamed pipeline by each route against float64."""
     import torch
@@ -108,17 +135,18 @@ def pipeline_routes(label, make, xt):
 
     z64, mean64, var64 = chip_smoke.light_pipeline(make(torch.float64), xt)()
     ref = {"z": z64, "preds": {chip_smoke.T_TEST: (mean64, var64)}}
-    kept, moments = fitlib._kept_recipe, fitlib._moments
+    factor, moments = fitlib._factor, fitlib._moments
+    f32_solves = lambda *a: moments(*a[:-1], False)  # noqa: E731
     routes = {
-        "cusolver_f32_solves": (lambda layout, batch: False, moments),
-        "blocked_f32_solves": (kept, lambda *a: moments(*a[:-1], False)),
-        "blocked_f64_solves": (kept, moments),
+        "cusolver_f32_solves": (cusolver_factor, f32_solves),
+        "blocked_f32_solves": (factor, f32_solves),
+        "blocked_f64_solves": (factor, moments),
     }
     rec = {"measurement": "routes", "label": label}
     m32 = make(torch.float32)
     try:
-        for name, (recipe, mom) in routes.items():
-            fitlib._kept_recipe, fitlib._moments = recipe, mom
+        for name, (fac, mom) in routes.items():
+            fitlib._factor, fitlib._moments = fac, mom
             run = chip_smoke.light_pipeline(m32, xt)
             run()  # warm
             t0 = time.perf_counter()
@@ -129,20 +157,97 @@ def pipeline_routes(label, make, xt):
                 sizes=(chip_smoke.T_TEST,))
             rec[name] = {**errs, "pipeline_s": secs}
     finally:
-        fitlib._kept_recipe, fitlib._moments = kept, moments
+        fitlib._factor, fitlib._moments = factor, moments
     rec["tolerances"] = chip_smoke.SLICE_TOL
     print(json.dumps(rec), flush=True)
+
+
+def _backward_err(Lf, K64, rows=4096):
+    """``max |L L' - K64|`` of a one-leaf factor, in row blocks (at n=33k a
+    float64 product of the whole takes 9 GB)."""
+    L64 = Lf[0].double()
+    err = 0.0
+    for s in range(0, L64.shape[0], rows):
+        err = max(err, float((L64[s:s + rows] @ L64.mT - K64[0, s:s + rows])
+                             .abs().max()))
+    return err
+
+
+def frontier_routes(n_train, seed_file, count=3):
+    """``--frontier``: see the module docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.leafgp import LeafBatch, leaf_mll_forward
+    from deepstructuredmixtures_tpu_torch.ops import cholesky as chol
+    from deepstructuredmixtures_tpu_torch.ops import potrf
+
+    model = cs.frontier_model(n_train, torch.float32)
+    seed = cs.load_seed(os.path.join(cs.REPO, seed_file), n_train,
+                        cs.FRONTIER_DEPTH, cs.FRONTIER_M, model.num_leaves)
+    xt = np.linspace(-0.05, 1.05, cs.T_TEST).reshape(-1, 1)
+    tidx, tmask = model._route(xt)
+    cs.check_seed_tree(seed, tmask)
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    xtd = torch.as_tensor(xt, dtype=torch.float32, device=model.device)
+    theta, layout = model.theta, model.layout
+    for i in np.argsort(-sizes[seed["leaves"]], kind="stable")[:count]:
+        leaf, nt = int(seed["leaves"][i]), int(seed["tcount"][i])
+        one = cs._leaf_batch(model, leaf)
+        one64 = LeafBatch(one.x.double(), one.y.double(), one.mask, one.n,
+                          one.mean.double(), one.kernelid)
+        xt_leaf = xtd[torch.as_tensor(tidx[leaf][None], dtype=torch.long,
+                                      device=model.device)]
+        K = fitlib._noisy_gram(layout, theta, one)
+        K64 = fitlib._noisy_gram(layout, theta.double(), one64)
+        factors = {"cusolver": lambda: chol.cholesky_nosym(K),
+                   "blocked": lambda: potrf.blocked_cholesky(K.clone()),
+                   "float64": lambda: chol.cholesky_nosym(K64)}
+        rec = {"measurement": "frontier", "n_train": n_train, "leaf": leaf,
+               "n": int(one.n[0]), "nmax": one.nmax, "routed": nt,
+               "mll_f64_seed": float(seed["mlls"][i])}
+        for name, fn in factors.items():
+            Lf, ms = _timed(fn)
+            rec[f"{name}_factor"] = {"ms": ms, "backward_err_max":
+                                     _backward_err(Lf, K64)}
+            b, th = (one64, theta.double()) if name == "float64" else (one, theta)
+            for solve64 in ((True,) if name == "float64" else (False, True)):
+                mu, var, z = fitlib._moments(layout, th, b, Lf,
+                                             xt_leaf.to(b.x.dtype), solve64)
+                mll = float(leaf_mll_forward(Lf, z, b)[0])
+                errs, _ = cs.seed_errors(
+                    {k: seed[k][i:i + 1] for k in ("mlls", "mu", "var",
+                                                    "tcount")}
+                    | {"leaves": np.array([0])}, np.array([mll]),
+                    mu.double().cpu().numpy(), var.double().cpu().numpy())
+                rec[f"{name}_{'f64' if solve64 else 'f32'}_solves"] = errs
+            del Lf
+            torch.cuda.empty_cache()
+        del K, K64
+        torch.cuda.empty_cache()
+        rec["tolerances"] = cs.ORACLE_TOL
+        print(json.dumps(rec), flush=True)
 
 
 def main():
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--frontier", action="store_true",
+                    help="measure the scale frontier's largest sampled leaves")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_chol_routes.py: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
 
     cs.phase_build()
+    if args.frontier:
+        for n_train, seed_file, _, _ in cs.FRONTIER_RUNS:
+            frontier_routes(n_train, seed_file)
+        print(cs.card_line(), flush=True)
+        return
     models = {dt: cs.mixture_model(100_000, dt) for dt in (torch.float32,
                                                             torch.float64)}
     leaf_routes("iso_linear", models[torch.float32], models[torch.float64],

@@ -6,9 +6,10 @@ NVIDIA GPU.
 
 Measures what the streamed path would gain and lose with the blocked
 kernel in place of cuSOLVER: the streamed path's factor (``fit._factor``,
-or ``fit._factor_refined`` under ``--refine-steps``) is set to
-``fit._factor`` (cuSOLVER above nmax 1024) and to ``fit._factor_kept``
-(the blocked kernel) in turns, inside this script only. It prints the headline
+the blocked kernel above nmax 1024) is set to
+``chip_chol_routes.cusolver_factor`` (cuSOLVER above nmax 1024) and back in
+turns, inside this script only; the solves are the path's own either way.
+It prints the headline
 pipeline (fit + update + routed predict at T=2000, min of 3) both ways in
 turns at N=100k and N=20k, the float32 errors against the float64 run both
 ways, and, for single leaves of the N=100k tree, the error of the
@@ -35,6 +36,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
+from chip_chol_routes import cusolver_factor  # noqa: E402
 
 
 def say(**fields):
@@ -117,14 +119,13 @@ def main():
         raise SystemExit("chip_potrf_ab.py: no CUDA device")
     build.build(build.KERNELS)
     card = cs.card_line()
-    ways = {"cusolver": fitlib._factor, "blocked_kernel": fitlib._factor_kept}
-    slot = "_factor_refined" if k else "_factor"
-    kept = getattr(fitlib, slot)
+    ways = {"cusolver": cusolver_factor, "blocked_kernel": fitlib._factor}
+    kept = fitlib._factor
     for n_train in (100_000, 20_000):
         run64 = _run(n_train, torch.float64)
         runs = {}
         for name, fn in ways.items():
-            setattr(fitlib, slot, fn)
+            fitlib._factor = fn
             cs.reset_launches()
             runs[name] = _run(n_train, torch.float32)
             if k:
@@ -142,11 +143,11 @@ def main():
                 tolerances=cs.SLICE_TOL, card=card)
         model = runs["cusolver"]["model"]
         for name in ("cusolver", "blocked_kernel", "blocked_kernel", "cusolver"):
-            setattr(fitlib, slot, ways[name])
+            fitlib._factor = ways[name]
             times = cs.headline_times(model, refine_steps=k)[0]
             say(compare="headline", n=n_train, factor=name, refine_steps=k,
                 seconds=min(times), runs=times, card=card)
-        setattr(fitlib, slot, kept)
+        fitlib._factor = kept
         if n_train == 100_000 and not k:
             _leaf_probe(run64["model"])
         del run64, runs, model

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time goes in the port's cells, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--n 100000] [--depth D] [--refine-steps K]
-                            [--float64] [--train] [--mesh]
+    python3 chip_profile.py [--n 100000] [--depth D [--sample]]
+                            [--refine-steps K] [--float64] [--train] [--mesh]
                             [--family poe|mixture|config5]
 
 Without ``--depth``: builds the headline model (V=3, K=4, M=30, depth 2,
@@ -15,7 +15,15 @@ With ``--depth D``, ``--refine-steps K`` or ``--float64``: the same model
 (on a tree of depth D, default 2; in float64 with ``--float64``), and the
 streamed pipeline of the benchmark (``bucketed_streamed_predict`` with K
 refinement steps → ``update_weights`` → ``_routed_moment_match`` at
-T=2000), run once to warm up and once under the profiler.
+T=2000), run once to warm up and once under the profiler. With ``--depth``
+the model is built without the overlap analysis, as ``bench.py
+--no-overlap`` builds it (O(L²N) on the host; the streamed pipeline does
+not read it). ``--sample`` profiles instead one leaf chunk of each size
+bucket (the fit's own chunk rule), each weighted by its bucket's leaves
+over the chunk's, and prints their sum: a pass of the scale frontier
+(``--n 1000000 --depth 4 --sample``, ``chip_smoke.py`` phase 16) launches
+about two million kernels, more than the profiler's own processing got
+through in 20 minutes.
 
 With ``--train``: one training gradient of the model (float64 with
 ``--float64``) by the route ``train`` takes (``train._train_vg``: the
@@ -40,8 +48,11 @@ gram+Cholesky kernel; the blocked Cholesky kernel's four CUDA kernels,
 first diagonal block of an outer panel / panel step with the next diagonal
 block / lookahead update / trailing update, with the count of panel steps;
 cuSOLVER's Cholesky; the triangular solves; matrix products; the rest, the
-gram and masking passes and copies), and the kernels with the most device
-time. The blocked kernel overlaps its serial chain with its trailing
+gram and masking passes and copies), the time at least one kernel ran
+(``device_busy_ms``, the union of their intervals: the wall-clock less it
+is the device's idle time, the profiler's own cost per launch included),
+and the kernels with the most device time. The blocked kernel overlaps
+its serial chain with its trailing
 update on two streams, so the sum of its kernels' times exceeds the time
 it holds the card. Needs a CUDA device; prints nothing else.
 """
@@ -86,6 +97,27 @@ def _group(key):
     return "other"
 
 
+def _busy_ms(prof):
+    """Milliseconds in which at least one device kernel ran: the union of
+    the kernels' intervals in the trace (None if it has none)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and getattr(e, "time_range", None) is not None
+                   and not e.name.startswith(("aten::", "cuda"))
+                   and e.name != "Command Buffer Full")
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    return (busy + hi - lo) / 1e3
+
+
 def profile(label, fn, top=12, quiet=False):
     """Run ``fn`` once under ``torch.profiler``; returns (and unless
     ``quiet`` prints) the JSON record described at the top."""
@@ -118,6 +150,7 @@ def profile(label, fn, top=12, quiet=False):
         g["launches"] += count
     rec = {
         "profile": label, "wall_s": wall, "device_kernels_ms": total / 1e3,
+        "device_busy_ms": _busy_ms(prof),
         "split": split, "blocked_cholesky_split": blocked,
         "panel_steps": blocked["diagonal"]["launches"] + blocked["panel"]["launches"],
         "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3}
@@ -164,6 +197,38 @@ def profile_mesh_fit(model, card, n):
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def profile_sampled(model, card, n):
+    """``--sample``: see the module docstring."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    xt = np.linspace(-0.05, 1.05, 2000).reshape(-1, 1)
+    ti = torch.as_tensor(model._route(xt)[0], dtype=torch.long,
+                         device=model.device)
+    xtd = torch.as_tensor(xt, dtype=model.dtype, device=model.device)
+    split, busy = {}, 0.0
+    for b, ids in zip(model.bucket_batches, model.bucket_spec.leaf_ids):
+        c = fitlib._bucket_chunk(b.nmax, b.num_leaves, b.x.dtype)
+        one = b.rows(0, c)
+        t = ti[fitlib._leaf_index(ids[:c], model.device)]
+
+        def run():
+            fitlib.streamed_leaf_predict(model.layout, model.theta, one, xtd, t,
+                                         chunk=c)
+
+        run()  # warms the allocator for this shape
+        rec = profile(f"chunk_nmax{b.nmax}", run, quiet=True)
+        w = b.num_leaves / one.num_leaves
+        for group, v in rec["split"].items():
+            split[group] = split.get(group, 0.0) + w * v["ms"]
+        busy += w * (rec["device_busy_ms"] or 0.0)
+    print(json.dumps({"profile": f"streamed_n{n}_sampled", "card": card,
+                      "buckets": len(model.bucket_batches),
+                      "device_kernels_ms": sum(split.values()),
+                      "device_busy_ms": busy, "split_ms": split}), flush=True)
 
 
 def profile_family(family, card, n):
@@ -214,6 +279,8 @@ def main():
                     help="profile one fit(mesh=...) in a world of one rank")
     ap.add_argument("--family", choices=("poe", "mixture", "config5"),
                     help="profile one warm call of that family's pipeline")
+    ap.add_argument("--sample", action="store_true",
+                    help="with --depth: one leaf chunk per size bucket, weighted")
     args = ap.parse_args()
     streamed = args.depth is not None or args.refine_steps or args.float64
     depth = args.depth or 2
@@ -231,7 +298,8 @@ def main():
     model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                              log_noise=-1.0, seed=0, device="cuda",
                              dtype=torch.float64 if args.float64 else torch.float32,
-                             do_fit=False, depth=depth)
+                             do_fit=False, depth=depth,
+                             overlap=args.depth is None)
     if args.mesh:
         profile_mesh_fit(model, card, args.n)
         return
@@ -247,6 +315,9 @@ def main():
         profile(f"train_grad_n{args.n}_{str(model.dtype).split('.')[-1]}",
                 lambda: vg(model.theta))
         return
+    if args.sample:
+        profile_sampled(model, card, args.n)
+        return
     if streamed:
         import chip_smoke
 
@@ -255,10 +326,10 @@ def main():
         from deepstructuredmixtures_tpu_torch.ops import fused_chol
 
         # the padded factorization work of the fused buckets and of the rest
-        work = {"fused": 0.0, "cusolver": 0.0}
+        work = {"fused": 0.0, "blocked": 0.0}
         for b in model.bucket_batches:
             kind = ("fused" if fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
-                                                    model.device) else "cusolver")
+                                                    model.device) else "blocked")
             work[kind] += b.num_leaves * b.nmax**3 / 3
         print(json.dumps({"card": card, "n": args.n, "depth": depth,
                           "refine_steps": args.refine_steps,

@@ -14,7 +14,8 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    float32 and float64 on the card, at the bucket shapes of the fit paths
    (the N=20k tree's three buckets, the domain's edges, the leaf chunks of
    the depth-4 tree at N=100k, the full store's and the PoE family's
-   monolithic batches), with tied and per-leaf hypers; padding
+   monolithic batches, and the frontier's leaf chunks of phase 16), with
+   tied and per-leaf hypers; padding
    contract checked exactly, the error within 5e-4 and 4x the plain
    version's; kernel, plain version and ``cholesky_ex`` on the ready gram
    (the factor alone, a yardstick) timed with CUDA events;
@@ -30,17 +31,20 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    seed 0) at N=20,000: ``build_dsmgp`` → ``fit`` → ``update`` →
    ``predict`` at 1, 64 and 2000 test points in float32, checked against
    the same calls in float64 on the card; the fused kernel must be
-   launched on both fit and predict, the blocked one never; ``fit()``
-   must keep the light store (the monolithic factors would take 6.4 GB,
-   above the full store's 2 GiB);
+   launched on both fit and predict, the blocked one once per leaf chunk
+   above nmax 1024 in the fit and in each predict (the streamed route of
+   ``fit._kept_recipe``: the blocked kernel's factor, float64 solves);
+   ``fit()`` must keep the light store (the monolithic factors would take
+   6.4 GB, above the full store's 2 GiB);
 5. the same at N=100,000, where every leaf is above the fused kernel's
-   domain (neither kernel may launch), plus the wall-clock of the
-   streamed fit+update+predict pipeline at T=2000 (neither kernel may
-   launch there either);
+   domain (the fused kernel may not launch, the blocked one 119 times a
+   pass), plus the wall-clock of the streamed fit+update+predict pipeline
+   at T=2000 (the same launches);
 5b. the same pipeline on the depth-4 tree at N=100,000 (20,736 leaves,
    most of them in the fused kernel's domain): the fused kernel must
    launch once per leaf chunk of its buckets (36) and never on a bucket
-   above 1024; float32 against float64 on the card; the wall-clock (min of
+   above 1024, the blocked kernel once per leaf chunk above it (17);
+   float32 against float64 on the card; the wall-clock (min of
    3 warm runs) and the fused kernel's share of the device time
    (``chip_profile.profile``); the build's seconds with and without the
    overlap analysis and the shared schedule;
@@ -76,18 +80,21 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    fit, predict at T=2000 and ``grad_mll`` times; float32 against float64;
    the full covariance's diagonal against the marginal variance; the
    float64 gradient against a central finite difference; an IsoLinear GP
-   at n=7,600 (the kept route of the training objective: the blocked
-   kernel's factor, a float64 backward; one blocked launch in the fit and
-   one in ``grad_mll``), its mll and ``grad_mll`` in float32 against
-   float64 by phase 11's bounds;
+   at n=7,600, its mll and ``grad_mll`` in float32 against float64 by
+   phase 11's bounds. In float32 both GPs take the kept route of the
+   training objective (the blocked kernel's factor, a float64 backward):
+   one blocked launch in each fit and each ``grad_mll``;
 11. training, on fresh models (the optimizer's first step, which imports
    ``torch._dynamo``, timed apart): at N=20,000 the root mll and its
    gradient at the start hypers by the route ``train`` takes (one graph
    through every bucket) in float32 against float64 (mll within 1e-3,
-   gradient within 1e-2 relative in norm), with no kernel launched, and
-   the float64 gradient against a central difference (1e-4); ``train``
-   (Adam, lr 1e-2, 5 iterations): the mll curve ascends, no kernel
-   launches before the refit, which launches the fused kernel 3 times.
+   gradient within 1e-2 relative in norm), and the float64 gradient
+   against a central difference (1e-4); ``train`` (Adam, lr 1e-2, 5
+   iterations): the mll curve ascends, and the refit launches the fused
+   kernel 3 times and the blocked one 15 (119 at N=100,000). Every float32
+   gradient of the phase launches the blocked kernel as the plan counts
+   (the objective's kept route, ``fit._kept_recipe``: once per leaf chunk
+   above nmax 1024 in each pass) and the fused one never.
    At N=100,000 ``train`` (2 iterations; the per-bucket route, nmax up to
    16,232): cold and warm seconds per iteration, peak memory, the first
    iteration's float32 gradient against float64; then ``finetune`` of the
@@ -100,7 +107,8 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    iterations;
 12. multi-device: in a world of one rank under NCCL, at N=100,000 float32
    ``fit(mesh=..., giant_leaf_bytes=512 MiB)`` (the leaves above nmax 11585
-   on the distributed Cholesky; no kernel may launch) → ``update`` →
+   on the distributed Cholesky; the others on the blocked kernel, once
+   per leaf chunk in the fit and in the predict) → ``update`` →
    routed and mean-only ``predict`` against phase 5's float64 run, the
    mesh fit and predict beside the light fit and streamed predict of the
    same model (in turns, min of 2), ``sharded_cholesky`` of the largest
@@ -108,9 +116,11 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    launches there are not counted) with its bound, and
    ``sharded_bucketed_streamed_predict`` against the local one; at N=20,000
    ``fit(mesh=)`` with the largest bucket routed in float32 (the fused
-   kernel must launch, the blocked one never; against phase 4's float64)
+   kernel must launch, the blocked one as the plan counts; against phase
+   4's float64)
    and in float64 (within 1e-8 of phase 4's), the sharded training
-   gradient (float32 against float64 by phase 11's gates) and
+   gradient (float32 against float64 by phase 11's gates; its blocked
+   launches as the plan counts) and
    ``GaussianProcess.fit(mesh=)`` at N=8,192 (float32 within the float32
    bounds, float64 within 1e-8); then two gloo ranks sharing ``cuda:0``
    repeat the float64 runs (N=20k fit and predict, the GP, 2 iterations of
@@ -155,7 +165,24 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    launches counted from the plan) and predict again (finite);
    ``chip_profile.py --family poe|mixture|config5`` profiles one warm call
    of each pipeline;
-16. a JSON line of the kernels, the card's name and power limit, and last
+16. the scale frontier (``README.md``; ``bench.py --n N --depth 4
+   --no-overlap --check-mlls FILE``): the streamed pipeline of phase 5 on
+   the depth-4 tree (20,736 leaves) at N=500,000 (37 buckets, leaves up to
+   16,731 points) and N=1,000,000 (43 buckets, up to 33,303), built
+   without the overlap analysis. Before any pass the seed file of sampled
+   float64 leaf oracles (``n500k_sampled_moments.npz``,
+   ``n1m_sampled_moments.npz``) is checked as ``bench.py`` checks it:
+   stamp, leaf ids, shapes, and the routed test counts of its leaves
+   against the port's tree. At N=500k a warm pass and a timed one, at N=1M
+   one pass, cold after N=500k's: each launches the kernels exactly as the
+   plan counts (the fused one up to nmax 1024, the blocked one above), and
+   every fused shape is one phase 2 holds. The sampled leaves' mll, routed
+   mean and variance against the seed (1e-3 relative to max(1, |mll|),
+   5e-3, 1e-3 relative); the combine on all 20,736 leaves against its
+   float64 NumPy replica (1e-8); at N=500k also float32 against a float64
+   pass on the card. The wall-clock, the model's TFLOPs and their rate,
+   peak memory;
+17. a JSON line of the kernels, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -178,11 +205,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: buckets of the N=20k headline tree, the domain's edges, the leaf chunks
 #: of the eight fused buckets of the depth-4 tree at N=100k (the largest
 #: chunk ``fit._bucket_chunk`` cuts from each bucket), the full store's
-#: monolithic batch at N=4k (phase 8), then the PoE family's at N=100k
-#: (phase 13)
+#: monolithic batch at N=4k (phase 8), the PoE family's at N=100k (phase
+#: 13), then the leaf chunks of the scale frontier's depth-4 trees (phase
+#: 16) that no shape before reaches: N=1M's, whose first two take clusters
+#: of 4 and 8 blocks at widths 256 and 384, then N=500k's
 KERNEL_SHAPES = [(16, 640), (12, 768), (16, 896), (8, 128), (4, 1024),
                  (1662, 128), (2048, 256), (910, 384), (512, 512), (327, 640),
-                 (227, 768), (167, 896), (128, 1024), (144, 768), (2048, 128)]
+                 (227, 768), (167, 896), (128, 1024), (144, 768), (2048, 128),
+                 (1, 256), (16, 384), (51, 512), (89, 640), (170, 768),
+                 (48, 896), (50, 1024), (2, 128), (65, 256), (268, 384),
+                 (9, 512), (120, 640), (76, 768), (149, 896), (118, 1024)]
 #: the valid leaf sizes of a shape whose leaves lie far below its nmax (else
 #: N/2 to N, one leaf full): the PoE family's 48-50 points padded to 128,
 #: timed beside ``cholesky_ex`` at the valid sizes' own padding, 56
@@ -197,9 +229,11 @@ KERNEL_PLAIN_FACTOR = 4.0
 #: ragged batched shapes of the hybrid fit (N=100k, N=20k, N=20k), the
 #: full store's leaf chunk at N=10k (phase 8), then the kernel-mixture
 #: model's: the largest and the most populous chunk of its N=20k hybrid fit
-#: and its largest streamed leaf at N=100k (phase 14)
+#: and its largest streamed leaf at N=100k (phase 14), then the scale
+#: frontier's largest leaf, N=1M (phase 16)
 POTRF_SHAPES = [(1, 4576), (1, 8296), (1, 16232), (13, 3176), (17, 1040),
-                (5, 2224), (48, 1664), (6, 3024), (63, 1048), (1, 14928)]
+                (5, 2224), (48, 1664), (6, 3024), (63, 1048), (1, 14928),
+                (1, 33304)]
 # max abs factor error vs float64: the bound of tests/test_pallas_potrf.py:43,
 # or 4x cholesky_ex's own float32 error on the same input where that is
 # larger (float32 error grows with the condition number at n ~ 16k)
@@ -558,8 +592,8 @@ def phase_potrf():
 
 def _slice(n_train, dtype):
     """build → fit → update → predict at each request size; returns the
-    model, evidence, predictions and the kernel launches on fit and on
-    predict."""
+    model, evidence, predictions, the fused kernel's launches on fit and on
+    predict and the blocked kernel's in all."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -590,13 +624,19 @@ def _slice(n_train, dtype):
             raise AssertionError(f"non-finite or non-positive moments at T={size}")
         preds[size] = (mean, var)
     predict_launches = launches()[0] - fit_launches
-    if blocked or launches()[1]:
-        raise AssertionError("the blocked kernel launched on the streamed path")
+    # the blocked kernel once per leaf chunk above nmax 1024, in the fit and
+    # in each streamed predict
+    per_pass = _expected_launches(model)[1]
+    if (blocked, launches()[1]) != (per_pass, (1 + len(REQUEST_SIZES)) * per_pass):
+        raise AssertionError(f"the blocked kernel launched {blocked} times on "
+                             f"the fit and {launches()[1]} in all, {per_pass} "
+                             "per pass expected")
     if model.posterior is not None:
         raise AssertionError(f"fit() kept the full store at N={n_train}")
     return dict(model=model, z=z, preds=preds, build_s=build_s, fit_s=fit_s,
                 predict_s=predict_s, fit_launches=fit_launches,
-                predict_launches=predict_launches)
+                predict_launches=predict_launches,
+                blocked_launches=launches()[1])
 
 
 def slice_errors(run32, run64, sizes=REQUEST_SIZES):
@@ -646,6 +686,7 @@ def phase_slice(n_train, expect_kernel):
         buckets=len(model.bucket_spec.nmaxs), fused_buckets=fused,
         launches_fit=run32["fit_launches"],
         launches_predict=run32["predict_launches"],
+        blocked_launches=run32["blocked_launches"],
         build_s=run32["build_s"], fit_s=run32["fit_s"],
         predict_s={str(k): v for k, v in run32["predict_s"].items()},
         evidence_f32=run32["z"], evidence_f64=run64["z"], errors_f32_vs_f64=errs,
@@ -653,11 +694,13 @@ def phase_slice(n_train, expect_kernel):
     return run32, run64
 
 
-def streamed_pipeline(model, refine_steps=0):
+def streamed_pipeline(model, refine_steps=0, leaves=False):
     """The benchmark's streamed pipeline on ``model`` at the T=2000 test
     points: ``bucketed_streamed_predict`` (with ``refine_steps``) →
     ``update_weights`` → ``_routed_moment_match``. Returns a function that
-    runs it once, synchronized, and gives ``(mean, var, root evidence)``."""
+    runs it once, synchronized, and gives ``(mean, var, root evidence)``,
+    with ``leaves`` followed by the leaf moments and mlls ``(mu [L, tmax],
+    var [L, tmax], mll [L])``."""
     import torch
 
     from deepstructuredmixtures_tpu_torch import fit as fitlib
@@ -677,8 +720,9 @@ def streamed_pipeline(model, refine_steps=0):
             refine_steps=refine_steps)
         lw, z = inferlib.update_weights(model.plan, mll)
         mean, v = _routed_moment_match(model.plan, mu, var, lw, ti, tm, T_TEST)
-        torch.cuda.synchronize()
-        return mean, v, z
+        if torch.device(model.device).type == "cuda":
+            torch.cuda.synchronize()
+        return (mean, v, z, mu, var, mll) if leaves else (mean, v, z)
 
     return pipeline
 
@@ -698,19 +742,23 @@ def headline_times(model, refine_steps=0):
 
 
 def phase_headline(model):
-    """The headline wall-clock (min of 3); neither kernel may launch.
-    Returns the seconds."""
+    """The headline wall-clock (min of 3); the blocked kernel launches once
+    per leaf chunk of each run (warm run included), the fused one never (no
+    bucket in its domain). Returns the seconds and the launches."""
     import torch
 
+    expected = tuple(4 * n for n in _expected_launches(model))
     reset_launches()
     times, (mean, v, _) = headline_times(model)
-    if any(launches()):
-        raise AssertionError(f"the headline launched a kernel: {launches()}")
+    if launches() != expected or expected[0]:
+        raise AssertionError(f"the headline launched {launches()}, expected "
+                             f"{expected}")
     if not (torch.isfinite(mean).all() and torch.isfinite(v).all()):
         raise AssertionError("headline pipeline gave non-finite moments")
     say("headline", metric="dsmgp_v3k4_fit_update_predict_n100000_t2000_wallclock",
-        seconds=min(times), runs=times, dtype=str(model.dtype), card=card_line())
-    return min(times)
+        seconds=min(times), runs=times, dtype=str(model.dtype),
+        launches=expected, card=card_line())
+    return min(times), expected
 
 
 def _depth4_model(dtype, overlap=True):
@@ -725,11 +773,12 @@ def _depth4_model(dtype, overlap=True):
 def phase_depth4():
     """The headline pipeline on the depth-4 tree at N=100k, where most
     leaves fall in the fused kernel's domain: the kernel must launch once
-    per leaf chunk of each fused bucket and never on a bucket above 1024;
-    the float32 run's evidence and moments against float64 on the card;
-    the wall-clock (min of 3 warm runs) and the fused kernel's share of the
-    device time under ``torch.profiler``. Returns the kernel's launches in
-    one run of the pipeline."""
+    per leaf chunk of each fused bucket and never on a bucket above 1024,
+    the blocked one once per leaf chunk above it; the float32 run's
+    evidence and moments against float64 on the card; the wall-clock (min
+    of 3 warm runs) and the fused kernel's share of the device time under
+    ``torch.profiler``. Returns the ``(fused, blocked)`` launches in one
+    run of the pipeline."""
     import torch
 
     import chip_profile
@@ -746,7 +795,7 @@ def phase_depth4():
     build_s = time.perf_counter() - t0
     if model._factor_bytes() <= FULL_STORE_BYTES:
         raise AssertionError("fit() would keep the full store at depth 4")
-    expected = _expected_launches(model)[0]
+    expected = _expected_launches(model)
     fused = [(nm, len(ids)) for nm, ids in zip(model.bucket_spec.nmaxs,
                                                model.bucket_spec.leaf_ids)
              if fused_chol.supported(nm, model.dtype, model.layout.kinds,
@@ -767,9 +816,9 @@ def phase_depth4():
         got, blocked = launches()
     finally:
         fused_chol.fused_gram_cholesky = kernel
-    if got != expected or blocked:
-        raise AssertionError(f"depth 4: fused launches {got} (expected {expected}),"
-                             f" blocked {blocked}")
+    if (got, blocked) != expected:
+        raise AssertionError(f"depth 4: launches {(got, blocked)}, expected "
+                             f"{expected}")
     if len(shapes) != got or any(N > fused_chol.MAX_N for _, N in shapes):
         raise AssertionError(f"depth 4: the fused kernel saw the shapes {shapes}")
     times = []
@@ -793,7 +842,8 @@ def phase_depth4():
             raise AssertionError(f"depth 4: f32 vs f64 {key} = {errs[key]} > {tol}")
     say(f"depth4_n{DEPTH4_N}", leaves=model.num_leaves,
         buckets=len(model.bucket_spec.nmaxs), fused_buckets=fused,
-        fused_launches=got, fused_launches_expected=expected,
+        fused_launches=got, blocked_launches=blocked,
+        launches_expected=expected,
         fused_shapes=shapes, build_s=build_s,
         build_s_overlap_false=build_no_overlap_s,
         metric="dsmgp_v3k4_depth4_fit_update_predict_n100000_t2000_wallclock",
@@ -801,17 +851,15 @@ def phase_depth4():
         evidence_f64=float(z64),
         errors_f32_vs_f64=errs, tolerances=SLICE_TOL,
         fused_share_of_device_time=share, profile=prof, card=card_line())
-    return got
+    return got, blocked
 
 
-def _launch_shapes(model, streamed=False):
+def _launch_shapes(model):
     """The ``(kernel, (leaves, nmax))`` of each kernel launch in one pass
     over the size buckets, one per leaf chunk by the fit's own chunk rule:
-    of ``fit(store='hybrid')`` with every bucket cached and of one refined
-    streamed pass (the fused kernel where it applies, else the blocked one
-    above nmax 1024), or with ``streamed`` of the light fit and of an
-    unrefined streamed predict (the blocked kernel only under
-    ``fit._kept_recipe``)."""
+    of ``fit(store='hybrid')`` with every bucket cached, of the light fit,
+    and of one streamed pass, refined or not (the fused kernel where it
+    applies, else the blocked one above nmax 1024: ``fit._kept_recipe``)."""
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
 
@@ -820,8 +868,7 @@ def _launch_shapes(model, streamed=False):
         if fused_chol.supported(b.nmax, b.x.dtype, model.layout.kinds,
                                 model.device):
             kernel = "fused"
-        elif (fitlib._kept_recipe(model.layout, b) if streamed
-              else potrf.supported(b.nmax, b.x.dtype, model.device)):
+        elif potrf.supported(b.nmax, b.x.dtype, model.device):
             kernel = "blocked"
         else:
             continue
@@ -831,17 +878,20 @@ def _launch_shapes(model, streamed=False):
     return out
 
 
-def _expected_launches(model, streamed=False):
-    """``(fused, blocked)`` launches of the pass of :func:`_launch_shapes`."""
-    kernels = [k for k, _ in _launch_shapes(model, streamed)]
+def _expected_launches(model, max_bytes=None):
+    """``(fused, blocked)`` launches of the pass of :func:`_launch_shapes`;
+    with ``max_bytes`` over the buckets whose one covariance takes at most
+    that many bytes (those ``fit(mesh=)`` keeps local)."""
+    item = model.dtype.itemsize
+    kernels = [k for k, (_, nmax) in _launch_shapes(model)
+               if max_bytes is None or nmax * nmax * item <= max_bytes]
     return kernels.count("fused"), kernels.count("blocked")
 
 
-def _blocked_shapes(model, streamed=True):
+def _blocked_shapes(model):
     """The distinct ``(leaves, nmax)`` the blocked kernel factors in the
     pass of :func:`_launch_shapes`."""
-    return sorted({s for k, s in _launch_shapes(model, streamed)
-                   if k == "blocked"})
+    return sorted({s for k, s in _launch_shapes(model) if k == "blocked"})
 
 
 def _hybrid_fit(model):
@@ -1130,7 +1180,7 @@ def _refined_errors(name, errs, base):
 def phase_refine(run20k, run20k64, run100k, run100k64, headline_s):
     """Mixed-precision refinement (``refine_steps``) against the float64
     runs of phases 4-5. The refined path factors with the fused kernel up
-    to nmax 1024 and the blocked kernel above (``fit._factor_refined``):
+    to nmax 1024 and the blocked kernel above (``fit._factor``):
     each kernel launches once per leaf chunk of its buckets. N=20k:
     ``predict(xt, refine_steps=k)`` at T=2000 for k = 1, 2 (3 fused and 15
     blocked launches each) and the refined streamed pipeline's evidence;
@@ -1238,8 +1288,10 @@ def phase_gp():
     float32 mll, mean and variance against float64 within ``SLICE_TOL``;
     the full covariance's diagonal against the marginal variance; the
     float64 gradient against a central finite difference; then the
-    IsoLinear GP (:func:`_gp_iso_linear`), whose ``(fused, blocked)``
-    launches it returns."""
+    IsoLinear GP (:func:`_gp_iso_linear`). In float32 every fit and
+    ``grad_mll`` takes the kept route (one blocked launch each: four fits
+    and four gradients, the min of 3 after a warm call). Returns the
+    ``(fused, blocked)`` launches of both GPs."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -1251,6 +1303,7 @@ def phase_gp():
         name = str(dtype).split(".")[-1]
         gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0),
                                   log_noise=-1.0, device="cuda", dtype=dtype)
+        reset_launches()
         fit_s, _ = _min_of_3(_timed(gp.fit))
         predict_s, _ = _min_of_3(_timed(lambda: gp.predict(xt)))
         grad_s, _ = _min_of_3(_timed(gp.grad_mll))
@@ -1264,7 +1317,12 @@ def phase_gp():
             raise AssertionError(f"GP {name}: non-finite or non-positive moments")
         out[name] = dict(gp=gp, z=gp.mll(), preds={T_TEST: (mean, var)},
                          times=dict(fit_s=fit_s, predict_t2000_s=predict_s,
-                                    grad_mll_s=grad_s), diag_rel=diag_rel)
+                                    grad_mll_s=grad_s), diag_rel=diag_rel,
+                         launches=launches())
+        expected = (0, 8) if dtype == torch.float32 else (0, 0)
+        if out[name]["launches"] != expected:
+            raise AssertionError(f"GP {name} launched {out[name]['launches']}, "
+                                 f"expected {expected}")
         del Sigma
     errs = slice_errors(out["float32"], out["float64"], sizes=(T_TEST,))
     for key, tol in SLICE_TOL.items():
@@ -1288,11 +1346,13 @@ def phase_gp():
     say(f"gp_n{GP_N}", n=GP_N, t=T_TEST,
         times={k: v["times"] for k, v in out.items()},
         mll={k: v["z"] for k, v in out.items()}, errors_f32_vs_f64=errs,
+        launches={k: v["launches"] for k, v in out.items()},
         tolerances=SLICE_TOL, full_cov_diag_rel={k: v["diag_rel"]
                                                   for k, v in out.items()},
         grad_mll_f64=g.tolist(), grad_rel_vs_finite_difference=grad_rel,
         card=card_line())
-    return _gp_iso_linear()
+    return tuple(a + b for a, b in zip(out["float32"]["launches"],
+                                       _gp_iso_linear()))
 
 
 def _gp_iso_linear():
@@ -1388,34 +1448,43 @@ def _rel(a, b):
 
 def _train_run(model, iterations):
     """``train(model, Adam, iterations, randinit=False)`` with every
-    iteration recorded; checks that no kernel launched before the refit and
-    that the mll curve ascends. Returns ``(hist, record, iteration seconds,
-    train seconds, refit launches)``."""
+    iteration recorded; checks that each iteration's gradient launched the
+    kernels as the plan counts (:func:`_train_launches`: the blocked kernel
+    on the objective's kept route, the fused one never) and that the mll
+    curve ascends. Returns ``(hist, record, iteration seconds, train
+    seconds, refit launches)``."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
 
+    per = _train_launches(model)
     record = []
     reset_launches()
     t0 = time.perf_counter()
     hist = tdsm.train(model, _recording(torch.optim.Adam, record, lr=TRAIN_LR),
                       iterations=iterations, randinit=False, progress=False)
     train_s = time.perf_counter() - t0
-    if any(r[1] != (0, 0) for r in record):
-        raise AssertionError(f"a kernel launched inside training: "
-                             f"{[r[1] for r in record]}")
+    if [r[1] for r in record] != [tuple((i + 1) * v for v in per)
+                                  for i in range(len(record))]:
+        raise AssertionError(f"training launched {[r[1] for r in record]}, "
+                             f"expected {per} an iteration")
     if not (hist.shape == (iterations,) and np.all(np.diff(hist) > 0)):
         raise AssertionError(f"the mll curve does not ascend: {hist.tolist()}")
-    return hist, record, _iteration_seconds(t0, record), train_s, launches()
+    refit = tuple(a - b for a, b in zip(launches(), record[-1][1]))
+    return hist, record, _iteration_seconds(t0, record), train_s, refit
 
 
 def phase_train_20k():
     """Training at N=20k (every bucket below nmax 4096: one graph through
     all buckets): the root mll and its gradient at the start hypers in
-    float32 against float64, no kernel launched by the gradient, the
+    float32 against float64, the gradient's launches as the plan counts
+    (:func:`_train_launches`: in float32 the blocked kernel once per leaf
+    chunk of the 15 buckets above nmax 1024, the fused one never), the
     float64 gradient against a central difference; then ``train`` (Adam,
-    lr 1e-2, 5 iterations), whose refit factors the three fused buckets.
-    Returns the refit's ``(fused, blocked)`` launches."""
+    lr 1e-2, 5 iterations), whose refit factors the three fused buckets
+    with the fused kernel and the 15 above nmax 1024 with the blocked one.
+    Returns the ``(fused, blocked)`` launches of the float32 gradient,
+    the training iterations and the refit."""
     import torch
 
     from deepstructuredmixtures_tpu_torch.train import (_train_vg,
@@ -1432,9 +1501,10 @@ def phase_train_20k():
         torch.cuda.synchronize()
         out[name] = dict(mll=float(val), grad=g.double().cpu().numpy(),
                          grad_s=time.perf_counter() - t0, launches=launches())
-        if out[name]["launches"] != (0, 0):
+        if out[name]["launches"] != _train_launches(m):
             raise AssertionError(f"N=20k {name} gradient launched "
-                                 f"{out[name]['launches']}")
+                                 f"{out[name]['launches']}, expected "
+                                 f"{_train_launches(m)}")
     mll_rel = abs(out["float32"]["mll"] - out["float64"]["mll"]) / abs(
         out["float64"]["mll"])
     grad_rel = _rel(out["float32"]["grad"], out["float64"]["grad"])
@@ -1457,9 +1527,10 @@ def phase_train_20k():
     if not np.all(fd_err <= TRAIN_FD_TOL):
         raise AssertionError(f"N=20k f64 gradient {g64} vs difference {fd}")
     del m64
-    hist, _, it_s, train_s, refit = _train_run(m32, TRAIN_ITERS[n])
-    if refit != (3, 0) or m32.posterior is not None:
-        raise AssertionError(f"N=20k refit launched {refit} (expected 3 fused)")
+    hist, record, it_s, train_s, refit = _train_run(m32, TRAIN_ITERS[n])
+    if refit != _expected_launches(m32) or m32.posterior is not None:
+        raise AssertionError(f"N=20k refit launched {refit}, expected "
+                             f"{_expected_launches(m32)}")
     say("train_n20000", route="make_mll_fn_bucketed under autograd",
         mll={k: v["mll"] for k, v in out.items()},
         grad={k: v["grad"].tolist() for k, v in out.items()},
@@ -1468,9 +1539,11 @@ def phase_train_20k():
         grad_f64_vs_finite_difference=float(fd_err.max()),
         tolerances={"mll_rel": SLICE_TOL["evidence_rel"],
                     "grad_rel": TRAIN_GRAD_TOL, "fd": TRAIN_FD_TOL},
-        train_hist=hist.tolist(), iteration_s=it_s, train_s=train_s,
+        grad_launches=out["float32"]["launches"], train_hist=hist.tolist(),
+        iteration_s=it_s, train_s=train_s, train_launches=record[-1][1],
         refit_launches=refit, card=card_line())
-    return refit
+    return tuple(a + b + c for a, b, c in zip(out["float32"]["launches"],
+                                              record[-1][1], refit))
 
 
 def phase_train_100k():
@@ -1478,8 +1551,8 @@ def phase_train_100k():
     graph per leaf chunk): ``train`` (Adam, lr 1e-2, 2 iterations) with its
     cold and warm seconds per iteration, the mll curve and peak memory; the
     first iteration's float32 gradient against the float64 gradient at the
-    same hypers. Returns the trained float32 model and the refit's
-    launches."""
+    same hypers. Returns the trained float32 model and the launches of
+    its iterations and refit."""
     import torch
 
     from deepstructuredmixtures_tpu_torch.train import _train_vg
@@ -1491,8 +1564,9 @@ def phase_train_100k():
     torch.cuda.reset_peak_memory_stats()
     hist, record, it_s, train_s, refit = _train_run(m32, TRAIN_ITERS[n])
     peak = torch.cuda.max_memory_allocated()
-    if refit != (0, 0):
-        raise AssertionError(f"N=100k refit launched {refit}")
+    if refit != _expected_launches(m32):
+        raise AssertionError(f"N=100k refit launched {refit}, expected "
+                             f"{_expected_launches(m32)}")
     m64 = _train_model(n, torch.float64)
     t0 = time.perf_counter()
     v64, g64 = _train_vg(m64)(m64.theta)
@@ -1511,8 +1585,9 @@ def phase_train_100k():
         cold_iteration_s=it_s[0], warm_iteration_s=it_s[1:], train_s=train_s,
         peak_memory_bytes=peak, mll_f32_rel_vs_f64=mll_rel,
         grad_f32=g32.tolist(), grad_f64=g64.tolist(), grad_f64_s=grad64_s,
-        grad_f32_rel_vs_f64=grad_rel, refit_launches=refit, card=card_line())
-    return m32, refit
+        grad_f32_rel_vs_f64=grad_rel, train_launches=record[-1][1],
+        refit_launches=refit, card=card_line())
+    return m32, tuple(a + b for a, b in zip(record[-1][1], refit))
 
 
 def phase_finetune_4k():
@@ -1583,8 +1658,10 @@ def phase_finetune_4k():
 def phase_finetune_100k(model):
     """One ``finetune`` iteration on the trained N=100k model for its two
     largest and two smallest leaves (the per-bucket route, the sparse pair
-    list), timed, with peak memory; no kernel launches (the refit streams
-    above the fused kernel's domain). Returns the launches."""
+    list), timed, with peak memory; the blocked kernel launches in the
+    gradient as the plan counts (:func:`_finetune_launches`) and once per
+    leaf chunk in the refit, the fused one never (every bucket is above its
+    domain). Returns the launches."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -1593,6 +1670,10 @@ def phase_finetune_100k(model):
     sizes = np.array([o.size for o in model.plan.leaf_obs])
     order = np.argsort(sizes, kind="stable")
     pick = np.concatenate([order[-2:], order[:2]])
+    cand = np.unique(pick)
+    W = _candidate_rows(model.plan.overlap, cand)
+    W[np.arange(cand.size), cand] = 1.0
+    grad_expected = _finetune_launches(model, cand, W, sparse=None)
     theta0 = model.theta.cpu().numpy()
     record = []
     torch.cuda.reset_peak_memory_stats()
@@ -1605,8 +1686,13 @@ def phase_finetune_100k(model):
     peak = torch.cuda.max_memory_allocated()
     H = model.theta.cpu().numpy()
     rest = np.setdiff1d(np.arange(model.num_leaves), pick)
-    if launches() != (0, 0) or not np.isfinite(hist).all():
-        raise AssertionError(f"N=100k finetune: launches {launches()}, {hist}")
+    refit = tuple(a - b for a, b in zip(launches(), record[0][1]))
+    if (record[0][1] != grad_expected or refit != _expected_launches(model)
+            or not np.isfinite(hist).all()):
+        raise AssertionError(f"N=100k finetune: launches {record[0][1]} in the "
+                             f"gradient and {refit} in the refit, expected "
+                             f"{grad_expected} and {_expected_launches(model)}, "
+                             f"{hist}")
     if not (np.array_equal(H[rest], np.broadcast_to(theta0, H[rest].shape))
             and not np.allclose(H[pick], theta0)):
         raise AssertionError("N=100k finetune moved rows it does not tune")
@@ -1614,14 +1700,17 @@ def phase_finetune_100k(model):
         overlap_nonzeros=int(np.count_nonzero(_candidate_rows(model.plan.overlap,
                                                               pick))),
         finetune_hist=hist.tolist(), iteration_s=_iteration_seconds(t0, record),
-        finetune_s=finetune_s, peak_memory_bytes=peak, launches=launches(),
+        finetune_s=finetune_s, peak_memory_bytes=peak,
+        gradient_launches=record[0][1], refit_launches=refit,
         card=card_line())
     return launches()
 
 
 def phase_train_gp():
     """``train_gp`` on phase 10's GP (N=8192, float32), RMSprop lr 1e-3
-    (decay 0.9), 5 iterations: seconds per iteration."""
+    (decay 0.9), 5 iterations: seconds per iteration; one blocked launch
+    in each iteration's gradient and one in the refit (the kept route).
+    Returns the launches."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -1630,6 +1719,7 @@ def phase_train_gp():
     gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-1.0,
                               device="cuda", dtype=torch.float32)
     record = []
+    reset_launches()
     t0 = time.perf_counter()
     hist = tdsm.train_gp(gp, iterations=TRAIN_ITERS["gp"], randinit=False,
                          optimizer=_recording(torch.optim.RMSprop, record,
@@ -1638,9 +1728,15 @@ def phase_train_gp():
     train_s = time.perf_counter() - t0
     if not (hist.shape == (TRAIN_ITERS["gp"],) and np.isfinite(hist).all()):
         raise AssertionError(f"train_gp: {hist}")
+    expected = (0, TRAIN_ITERS["gp"] + 1)
+    if launches() != expected or [r[1] for r in record] != [
+            (0, i + 1) for i in range(len(record))]:
+        raise AssertionError(f"train_gp launched {[r[1] for r in record]} "
+                             f"and {launches()} in all, expected {expected}")
     say(f"train_gp_n{GP_N}", hist=hist.tolist(),
         iteration_s=_iteration_seconds(t0, record), train_s=train_s,
-        card=card_line())
+        launches=launches(), card=card_line())
+    return launches()
 
 
 def _first_optimizer_step_s():
@@ -1659,7 +1755,7 @@ def _first_optimizer_step_s():
 
 def phase_training():
     """Phase 11, training (see the module docstring). Returns the
-    ``(fused, blocked)`` launches of its refits."""
+    ``(fused, blocked)`` launches of its gradients and refits."""
     t0 = time.perf_counter()
     say("optimizer_import", first_step_s=_first_optimizer_step_s())
     launched = np.zeros(2, dtype=int)
@@ -1669,9 +1765,9 @@ def phase_training():
     launched += phase_finetune_100k(model)
     del model
     launched += phase_finetune_4k()
-    phase_train_gp()
+    launched += phase_train_gp()
     say("training", seconds=time.perf_counter() - t0,
-        refit_launches=launched.tolist())
+        launches=launched.tolist())
     return tuple(int(v) for v in launched)
 
 
@@ -1831,8 +1927,10 @@ def _mesh_train(mesh):
     """The sharded training gradient at N=20k (float32, per bucket and
     leaf chunk on each rank, one psum) against the unsharded float64
     gradient: mll within 1e-3, gradient within 1e-2 relative in norm (phase
-    11's gates); no kernel launches; seconds against the unsharded float32
-    gradient's."""
+    11's gates); each run launches as the plan counts
+    (:func:`_train_launches`: the objective's kept route, two passes per
+    bucket in the sharded gradient); seconds against the unsharded float32
+    gradient's. Returns the line and the float32 runs' launches."""
     import torch
 
     from deepstructuredmixtures_tpu_torch.parallel.mesh import (
@@ -1844,10 +1942,11 @@ def _mesh_train(mesh):
     vg = make_sharded_value_and_grad_bucketed(
         m32.layout, m32.plan, m32.bucket_batches, m32.bucket_spec.leaf_ids,
         mesh)
-    out = {}
-    for name, fn, theta in (("sharded", vg, m32.theta),
-                            ("local", _train_vg(m32), m32.theta),
-                            ("float64", _train_vg(m64), m64.theta)):
+    out, launched = {}, np.zeros(2, dtype=int)
+    for name, fn, theta, per in (
+            ("sharded", vg, m32.theta, _train_launches(m32, per_bucket=True)),
+            ("local", _train_vg(m32), m32.theta, _train_launches(m32)),
+            ("float64", _train_vg(m64), m64.theta, (0, 0))):
         reset_launches()
         runs = []
         for _ in range(2):  # cold, warm
@@ -1855,10 +1954,12 @@ def _mesh_train(mesh):
             v, g = fn(theta)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
-        if launches() != (0, 0):
+        if launches() != _twice(per):
             raise AssertionError(f"the {name} training gradient launched "
-                                 f"{launches()}")
-        out[name] = dict(mll=float(v), grad=g.double().cpu().numpy(), s=runs)
+                                 f"{launches()}, expected {_twice(per)}")
+        launched += launches()
+        out[name] = dict(mll=float(v), grad=g.double().cpu().numpy(), s=runs,
+                         launches=launches())
     mll_rel = abs(out["sharded"]["mll"] - out["float64"]["mll"]) / abs(
         out["float64"]["mll"])
     grad_rel = _rel(out["sharded"]["grad"], out["float64"]["grad"])
@@ -1866,14 +1967,18 @@ def _mesh_train(mesh):
         raise AssertionError(f"sharded gradient f32 vs f64: mll {mll_rel}, "
                              f"grad {grad_rel}")
     return dict(seconds={k: v["s"] for k, v in out.items()},
-                mll_f32_rel_vs_f64=mll_rel, grad_f32_rel_vs_f64=grad_rel)
+                launches={k: v["launches"] for k, v in out.items()},
+                mll_f32_rel_vs_f64=mll_rel, grad_f32_rel_vs_f64=grad_rel), \
+        tuple(int(n) for n in launched)
 
 
 def _mesh_gp(mesh, xt):
     """``GaussianProcess.fit(mesh=)`` + ``predict`` at N=8192 in float32
     and float64 against the unsharded float64 GP: float32 within the float32
     bounds, float64 within 1e-8; fit and predict seconds (min of 3) beside
-    the unsharded ones. Returns the line and the float64 mesh run."""
+    the unsharded ones. The unsharded float32 fits take the kept route (one
+    blocked launch each, four with the warm one); the mesh fits launch no
+    kernel. Returns the line, the float64 mesh run and the launches."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
@@ -1886,10 +1991,15 @@ def _mesh_gp(mesh, xt):
                                ("mesh_float32", torch.float32, mesh)):
         gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoSE(0.0, 0.0),
                                   log_noise=-1.0, device="cuda", dtype=dtype)
+        reset_launches()
         fit_s, _ = _min_of_3(_timed(lambda: gp.fit(mesh=mesh_,
                                                    block=MESH_BLOCK)))
         predict_s, _ = _min_of_3(_timed(lambda: gp.predict(xt)))
         mean, var = gp.predict(xt)
+        expected = (0, 4) if name == "unsharded_float32" else (0, 0)
+        if launches() != expected:
+            raise AssertionError(f"GP {name} launched {launches()}, "
+                                 f"expected {expected}")
         runs[name] = dict(z=gp.mll(), preds={T_TEST: (mean.double(),
                                                       var.double())})
         times[name] = dict(fit_s=fit_s, predict_t2000_s=predict_s)
@@ -1900,7 +2010,7 @@ def _mesh_gp(mesh, xt):
     errs64 = _f64_errors(runs["mesh_float64"], base)
     _gate("GP mesh f64 vs unsharded", errs64, MESH_F64_TOL)
     return dict(n=GP_N, times=times, errors_f32_vs_f64=errs32,
-                errors_f64_vs_unsharded=errs64), runs["mesh_float64"]
+                errors_f64_vs_unsharded=errs64), runs["mesh_float64"], (0, 4)
 
 
 def _mesh_train_refs(mesh):
@@ -2003,8 +2113,8 @@ def _mesh_rank(rank, world, store, refs_path, out_path):
 def phase_mesh(ref20k, ref100k):
     """Phase 12, multi-device (see the module docstring). ``ref20k`` /
     ``ref100k``: the float64 slices of phases 4-5 (evidence and T=2000
-    moments). Returns the fused kernel's launches of its N=20k float32 mesh
-    run."""
+    moments). Returns the ``(fused, blocked)`` launches of its counted
+    float32 runs."""
     import tempfile
 
     import torch
@@ -2036,8 +2146,13 @@ def phase_mesh(ref20k, ref100k):
             light["predict_s"].append(time.perf_counter() - t0)
             mesh_runs.append(_mesh_slice(mesh, model, MESH_GIANT_BYTES, xt))
         run = mesh_runs[-1]
-        if any(r["launches"] != (0, 0) for r in mesh_runs):
-            raise AssertionError(f"N=100k mesh run launched {run['launches']}")
+        # the blocked kernel in the light fit and the streamed predict of
+        # the buckets kept local, the fused one never (no bucket in its domain)
+        local = _twice(_expected_launches(model, max_bytes=MESH_GIANT_BYTES))
+        if any(r["launches"] != local for r in mesh_runs):
+            raise AssertionError(f"N=100k mesh run launched {run['launches']}, "
+                                 f"expected {local}")
+        counted = np.array(local) * len(mesh_runs)
         errs = slice_errors(run, ref100k, sizes=(T_TEST,))
         _gate("N=100k mesh f32 vs f64", {k: errs[k] / SLICE_TOL[k]
                                           for k in SLICE_TOL}, 1.0)
@@ -2046,10 +2161,15 @@ def phase_mesh(ref20k, ref100k):
         if not (mean_only_err <= SLICE_TOL["mean_abs"]):
             raise AssertionError(f"N=100k mesh mean-only {mean_only_err}")
         chol = _mesh_cholesky(mesh, model)
+        reset_launches()
         model.fit()  # drops the giant leaves' factors
         streamed = _mesh_streamed(mesh, model, ref100k)
-        if launches() != (0, 0):
-            raise AssertionError(f"N=100k launched {launches()}")
+        # the light fit and four streamed passes over every bucket
+        expected = tuple(5 * n for n in _expected_launches(model))
+        if launches() != expected:
+            raise AssertionError(f"N=100k launched {launches()}, expected "
+                                 f"{expected}")
+        counted += expected
         del model
         torch.cuda.empty_cache()
         say("mesh_n100000", backend=backend, ranks=1,
@@ -2073,10 +2193,13 @@ def phase_mesh(ref20k, ref100k):
         model = _train_model(20_000, torch.float32)
         nmaxs = sorted(model.bucket_spec.nmaxs)
         run32 = _mesh_slice(mesh, model, nmaxs[-2] ** 2 * 4, xt)
+        local = _twice(_expected_launches(model, max_bytes=nmaxs[-2] ** 2 * 4))
         del model
-        if not (run32["launches"][0] > 0 and run32["launches"][1] == 0):
+        if run32["launches"] != local or not local[0]:
             raise AssertionError(f"N=20k mesh float32 launched "
-                                 f"{run32['launches']} (fused, blocked)")
+                                 f"{run32['launches']} (fused, blocked), "
+                                 f"expected {local}")
+        counted += local
         errs32 = slice_errors(run32, ref20k, sizes=(T_TEST,))
         _gate("N=20k mesh f32 vs f64", {k: errs32[k] / SLICE_TOL[k]
                                          for k in SLICE_TOL}, 1.0)
@@ -2088,8 +2211,9 @@ def phase_mesh(ref20k, ref100k):
         errs64 = _f64_errors(run64, {"z": ref20k["z"], "preds": {T_TEST: tuple(
             a.cpu() for a in ref20k["preds"][T_TEST])}})
         _gate("N=20k mesh f64 vs unsharded", errs64, MESH_F64_TOL)
-        train = _mesh_train(mesh)
-        gp_line, _ = _mesh_gp(mesh, xt)
+        train, train_launches = _mesh_train(mesh)
+        gp_line, _, gp_launches = _mesh_gp(mesh, xt)
+        counted += np.array(train_launches) + gp_launches
         say("mesh_n20000", backend=backend, ranks=1, routed=run32["routed"],
             routed_n=run32["routed_n"], launches_f32=run32["launches"],
             fit_mesh_f32_s=run32["fit_s"],
@@ -2120,7 +2244,7 @@ def phase_mesh(ref20k, ref100k):
         f64_tol=MESH_F64_TOL, card=card_line())
     say("mesh", seconds=time.perf_counter() - t_phase,
         fused_launches=run32["launches"][0])
-    return run32["launches"][0]
+    return tuple(int(n) for n in counted)
 
 
 # ---------------------------------------------------------------------------
@@ -2472,7 +2596,7 @@ def _no_fused_domain(model, name):
 
 def _refit_launches(model):
     """``(fused, blocked)`` launches of ``model.fit()``: the full store
-    factors the monolithic batch chunk by chunk (``_factor_kept``), the
+    factors the monolithic batch chunk by chunk (``fit._factor``), the
     light store is one streamed pass."""
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.models import FULL_STORE_BYTES
@@ -2480,7 +2604,7 @@ def _refit_launches(model):
 
     nmax, dt = model.plan.nmax, model.dtype
     if model._factor_bytes() > FULL_STORE_BYTES:
-        return _expected_launches(model, streamed=True)
+        return _expected_launches(model)
     chunks = math.ceil(model.num_leaves / fitlib.default_chunk(nmax, dt))
     if fused_chol.supported(nmax, dt, model.layout.kinds, model.device):
         return (chunks, 0)
@@ -2500,7 +2624,7 @@ def _refit_and_predict_launches(model):
     refit = _refit_launches(model)
     if model._factor_bytes() <= FULL_STORE_BYTES:
         return refit
-    streamed = _expected_launches(model, streamed=True)
+    streamed = _expected_launches(model)
     return tuple(a + b for a, b in zip(refit, streamed))
 
 
@@ -2537,32 +2661,35 @@ def _train_launches(model, per_bucket=None):
         per_bucket = _per_bucket(model)
     n = 0
     for b in model.bucket_batches:
-        if fitlib._kept_recipe(model.layout, b):
+        if fitlib._kept_recipe(b):
             c = fitlib._bucket_chunk(b.nmax, b.num_leaves, b.x.dtype)
             chunks = -(-b.num_leaves // c)
             n += 2 * chunks if per_bucket or c < b.num_leaves else 1
     return 0, n
 
 
-def _finetune_launches(model, cand, W, cand_map=8):
+def _finetune_launches(model, cand, W, cand_map=8, sparse=True):
     """``(fused, blocked)`` launches of one evaluation of the bucketed
-    fine-tune engine (``train.make_finetune_vg_bucketed``, sparse pair
-    list) for the candidates ``cand`` under the weights ``W [C, L]``: per
-    kept-route bucket, one per chunk of (candidate, leaf) pairs of each
-    group of ``cand_map`` candidates in the forward (the chunk rule of
-    ``fit._bucket_chunk``) and one per chunk of its nonzero pairs in the
-    backward (``train._pair_chunk``)."""
+    fine-tune engine (``train.make_finetune_vg_bucketed`` with ``sparse``:
+    the nonzero pairs; ``None``, the engine's default, picks them where
+    ``W`` is under 25% dense, else all) for the candidates ``cand`` under
+    the weights ``W [C, L]``: per kept-route bucket, one per chunk of (candidate, leaf)
+    pairs of each group of ``cand_map`` candidates in the forward (the
+    chunk rule of ``fit._bucket_chunk``) and one per chunk of its listed
+    pairs in the backward (``train._pair_chunk``)."""
     from deepstructuredmixtures_tpu_torch import fit as fitlib
     from deepstructuredmixtures_tpu_torch.train import _pair_chunk
 
     C, n = len(cand), 0
+    if sparse is None:
+        sparse = np.count_nonzero(W) < 0.25 * W.size
     for b, ids in zip(model.bucket_batches, model.bucket_spec.leaf_ids):
-        if not fitlib._kept_recipe(model.layout, b):
+        if not fitlib._kept_recipe(b):
             continue
         for s in range(0, C, cand_map):
             pairs = (min(s + cand_map, C) - s) * b.num_leaves
             n += -(-pairs // fitlib._bucket_chunk(b.nmax, pairs, b.x.dtype))
-        nz = int(np.count_nonzero(W[:, ids]))
+        nz = int(np.count_nonzero(W[:, ids])) if sparse else C * len(ids)
         n += -(-nz // _pair_chunk(b.nmax, b.x.dtype))
     return 0, n
 
@@ -2631,7 +2758,7 @@ def _mixture_streamed(xt):
     _no_fused_domain(m32, f"mixture N={n}")
     kid = m32.plan.leaf_kernelid
     sizes = np.array([o.size for o in m32.plan.leaf_obs])
-    expected = _twice(_expected_launches(m32, streamed=True))
+    expected = _twice(_expected_launches(m32))
     if not expected[1]:
         raise AssertionError(f"mixture N={n}: no bucket on the blocked kernel")
     cold, warm = {}, {}
@@ -2807,7 +2934,7 @@ def _mixture_hybrid_train():
     say(f"mixture_n{n}", leaves=L, buckets=len(m32.bucket_batches),
         nmax=[min(m32.bucket_spec.nmaxs), max(m32.bucket_spec.nmaxs)],
         build_s=build_s, hybrid_fit_s=fit_s, launches_hybrid=hybrid_launches,
-        blocked_shapes=_blocked_shapes(m32, streamed=False),
+        blocked_shapes=_blocked_shapes(m32),
         cached_bytes=cached_bytes,
         predict_s={str(k): v for k, v in predict_s.items()},
         errors_f32_vs_f64=errs, train_route="make_value_and_grad_bucketed",
@@ -2909,7 +3036,7 @@ def phase_config5():
     if not np.array_equal(model.get_params(), theta):
         raise AssertionError("the warm start did not carry the hypers unchanged")
     del msub
-    expected = _twice(_expected_launches(model, streamed=True))
+    expected = _twice(_expected_launches(model))
     if not expected[1]:
         raise AssertionError("config 5: no bucket on the blocked kernel")
     secs = {}
@@ -3020,6 +3147,284 @@ def phase_config5():
                                                    ft_launches))
 
 
+# ---------------------------------------------------------------------------
+# The scale frontier (phase 16): the depth-4 streamed pipeline at N=500k and
+# N=1M, held to the repo's sampled float64 leaf oracles
+# ---------------------------------------------------------------------------
+
+#: phase 16 (``README.md``'s scale frontier, ``bench.py --n N --depth 4
+#: --no-overlap --check-mlls FILE``): the training points, the seed file of
+#: sampled float64 leaf oracles that ``_seed_n1m_baseline.py`` wrote for
+#: that tree, the passes (the wall-clock is the least after the first, or
+#: the one pass: N=1M runs once, cold after N=500k's, to keep the script
+#: within its time limit), and whether a float64 pass on the card follows
+FRONTIER_RUNS = ((500_000, "n500k_sampled_moments.npz", 2, True),
+                 (1_000_000, "n1m_sampled_moments.npz", 1, False))
+FRONTIER_DEPTH, FRONTIER_M = 4, 30
+#: the SPN combine against its float64 NumPy replica on the port's own leaf
+#: moments at every leaf (``bench.py:1668-1688``), mean absolute and
+#: variance relative
+COMBINE_TOL = {"mean_abs": 1e-8, "var_rel": 1e-8}
+
+
+def frontier_model(n_train, dtype, device="cuda"):
+    """The model of ``bench.py:93-99`` on the depth-4 tree, built as
+    ``bench.py --no-overlap`` builds it: V=3, K=4, M=30, IsoSE(0, 0), log
+    noise -1, seed 0, no overlap analysis."""
+    import deepstructuredmixtures_tpu_torch as tdsm
+
+    x, y = make_data(n_train)
+    return tdsm.build_dsmgp(x, y, V=3, K=4, M=FRONTIER_M,
+                            kernel=tdsm.IsoSE(0.0, 0.0), log_noise=-1.0, seed=0,
+                            device=device, dtype=dtype, do_fit=False,
+                            depth=FRONTIER_DEPTH, overlap=False)
+
+
+def load_seed(path, n_train, depth, m, num_leaves):
+    """The sampled float64 leaf oracles of the seed file ``path``
+    (``_seed_n1m_baseline.py``'s format), checked as ``bench.py:1348-1389``
+    checks a ``--check-mlls`` file before its run: stamped with this run's
+    ``(n, depth, m)``, distinct leaf ids below ``num_leaves``, and arrays
+    of consistent shapes. Returns ``{leaves, mlls, mu, var, tcount}``;
+    raises on any mismatch."""
+    keys = ("leaves", "mlls", "mu", "var", "tcount")
+    with np.load(path) as f:
+        missing = sorted(set(keys + ("n", "depth", "m")) - set(f.files))
+        if missing:
+            raise AssertionError(f"{path}: no {missing}")
+        stamp = {k: int(f[k]) for k in ("n", "depth", "m")}
+        seed = {k: np.asarray(f[k]) for k in keys}
+    want = {"n": n_train, "depth": depth, "m": m}
+    if stamp != want:
+        raise AssertionError(f"{path}: stamped {stamp}, the run is {want}")
+    leaves, mu = seed["leaves"], seed["mu"]
+    k = leaves.size
+    if (k == 0 or leaves.shape != (k,) or seed["mlls"].shape != (k,)
+            or seed["tcount"].shape != (k,) or mu.ndim != 2
+            or mu.shape[0] != k or seed["var"].shape != mu.shape):
+        raise AssertionError(f"{path}: arrays of inconsistent shapes "
+                             f"{ {key: a.shape for key, a in seed.items()} }")
+    if (leaves.min() < 0 or leaves.max() >= num_leaves
+            or np.unique(leaves).size != k):
+        raise AssertionError(f"{path}: leaf ids not distinct in [0, "
+                             f"{num_leaves})")
+    if seed["tcount"].min() < 0 or seed["tcount"].max() > mu.shape[1]:
+        raise AssertionError(f"{path}: routed counts outside [0, {mu.shape[1]}]")
+    return seed
+
+
+def check_seed_tree(seed, tmask):
+    """The tree-identity check: the routed test counts of the sampled
+    leaves (``tmask [L, tmax]``) equal the seed file's."""
+    got = np.asarray(tmask)[seed["leaves"]].sum(axis=1)
+    if not np.array_equal(got, seed["tcount"]):
+        bad = np.nonzero(got != seed["tcount"])[0]
+        raise AssertionError(
+            f"the seed file was written for another tree: leaves "
+            f"{seed['leaves'][bad[:5]].tolist()} route {got[bad[:5]].tolist()} "
+            f"test points, the file says {seed['tcount'][bad[:5]].tolist()}")
+
+
+def seed_errors(seed, mll, mu, var):
+    """The sampled leaves against their float64 oracles, as
+    ``bench.py:1640-1666`` computes them: the leaf mll relative to max(1,
+    |mll|), the mean absolute and the variance relative over each leaf's
+    routed points; with the leaf of the worst mll error."""
+    leaves = seed["leaves"]
+    mll = np.asarray(mll, np.float64)[leaves]
+    mll_rel = np.abs(mll - seed["mlls"]) / np.maximum(1.0, np.abs(seed["mlls"]))
+    errs = {"mll_rel": float(mll_rel.max()), "mean_abs": 0.0, "var_rel": 0.0}
+    for i, leaf in enumerate(leaves):
+        nt = int(seed["tcount"][i])
+        if nt == 0:
+            continue
+        m_l = np.asarray(mu[leaf][:nt], np.float64)
+        v_l = np.asarray(var[leaf][:nt], np.float64)
+        v_o = seed["var"][i][:nt]
+        errs["mean_abs"] = max(errs["mean_abs"], float(np.max(
+            np.abs(m_l - seed["mu"][i][:nt]))))
+        errs["var_rel"] = max(errs["var_rel"], float(np.max(
+            np.abs(v_l - v_o) / np.maximum(1e-12, np.abs(v_o)))))
+    return errs, int(leaves[np.argmax(mll_rel)])
+
+
+def np_update_weights(plan, leaf_mlls):
+    """Float64 NumPy replica of ``infer.update_weights`` (``bench.py``
+    ``_np_update_weights``): the posterior sum-edge log weights and the root
+    log evidence."""
+    vals = np.asarray(leaf_mlls, dtype=np.float64)
+    lw = np.zeros(max(plan.n_sum_edges, 1))
+    for g in plan.groups:
+        child = vals[g.child_slots]
+        if g.kind == "split":
+            new = np.zeros(g.n_parents)
+            np.add.at(new, g.seg, child)
+        else:
+            raw = child + g.neg_logk
+            m = np.full(g.n_parents, -np.inf)
+            np.maximum.at(m, g.seg, raw)
+            e = np.zeros(g.n_parents)
+            np.add.at(e, g.seg, np.exp(raw - m[g.seg]))
+            z = m + np.log(e)
+            lw[g.edge_ids] = raw - z[g.seg]
+            new = z
+        vals = np.concatenate([vals, new])
+    return lw, vals[plan.root_slot]
+
+
+def np_moment_match(plan, mu, var, lw, tidx, tmask, T):
+    """Float64 NumPy replica of ``models._routed_moment_match``
+    (``bench.py`` ``_np_moment_match``): each leaf's path weight from the
+    sparse ``path_edges``, then the log-space moment matching over the
+    routed (leaf, point) pairs with the ``μmin − 1`` shift. Returns
+    ``(mean [T], var [T])``."""
+    mu = np.asarray(mu, np.float64)
+    pw = (lw[plan.path_edges] * plan.path_mask).sum(axis=1)  # [L]
+    var = np.maximum(np.asarray(var, np.float64), 1e-8)
+    seg = np.asarray(tidx).reshape(-1)
+    msk = np.asarray(tmask).reshape(-1)
+    muf = mu.reshape(-1)
+    varf = var.reshape(-1)
+    wf = np.broadcast_to(pw[:, None], mu.shape).reshape(-1)
+    mu_min = np.full(T, np.inf)
+    np.minimum.at(mu_min, seg[msk], muf[msk])
+    shift = mu_min - 1.0
+
+    def seg_lse(xv):
+        m = np.full(T, -np.inf)
+        np.maximum.at(m, seg[msk], xv[msk])
+        m_safe = np.where(np.isfinite(m), m, 0.0)
+        e = np.zeros(T)
+        np.add.at(e, seg[msk], np.exp(xv[msk] - m_safe[seg[msk]]))
+        return m_safe + np.log(e)
+
+    lmu = seg_lse(wf + np.log(np.where(msk, muf - shift[seg], 1.0)))
+    lmu2 = seg_lse(wf + np.log(np.maximum(muf * muf, 1e-300)))
+    lvar = seg_lse(wf + np.log(varf))
+    mean = np.exp(lmu) + shift
+    return mean, np.exp(lvar) + (np.exp(lmu2) - mean * mean)
+
+
+def model_flops(plan, tmask):
+    """The model operations of one fit+update+predict pass over the true
+    leaf sizes (``bench.model_flops``, ``bench.py:58-76``): per leaf the
+    training gram, the Cholesky, the forward solve of ``[y | K_nt]``, the
+    cross gram and the moments' reductions."""
+    D = plan.dim
+    n = np.array([o.size for o in plan.leaf_obs], np.float64)
+    t = np.asarray(tmask).sum(axis=1).astype(np.float64)
+    return float(np.sum(2.0 * n * n * D + n ** 3 / 3.0 + 2.0 * n * n * (t + 1)
+                        + 2.0 * n * t * D + 4.0 * n * t))
+
+
+def _frontier_run(n_train, seed_file, passes, float64):
+    """One line of phase 16 at ``n_train`` points; returns the fused
+    kernel's and the blocked kernel's launches in its counted passes."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.ops import fused_chol
+
+    t0 = time.perf_counter()
+    model = frontier_model(n_train, torch.float32)
+    build_s = time.perf_counter() - t0
+    seed = load_seed(os.path.join(REPO, seed_file), n_train, FRONTIER_DEPTH,
+                     FRONTIER_M, model.num_leaves)
+    xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
+    tidx, tmask = model._route(xt)
+    check_seed_tree(seed, tmask)
+    shapes = _launch_shapes(model)
+    expected = _expected_launches(model)
+    unheld = sorted({s for k, s in shapes if k == "fused"} - set(KERNEL_SHAPES))
+    if unheld:
+        raise AssertionError(f"phase 2 does not hold the fused kernel at {unheld}")
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    flops = model_flops(model.plan, tmask)
+    pipeline = streamed_pipeline(model, leaves=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(passes):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = pipeline()
+        runs.append(time.perf_counter() - t0)
+        if launches() != expected:
+            raise AssertionError(f"N={n_train}: launches {launches()}, the "
+                                 f"plan counts {expected}")
+    peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+    mean, v, z, mu, var, mll = out
+    del out, pipeline
+    _finite_moments(f"frontier N={n_train}", mean, v, T_TEST)
+    mu, var, mll = (a.double().cpu().numpy() for a in (mu, var, mll))
+    if not (np.isfinite(mll).all() and np.isfinite(mu[tmask]).all()
+            and (var[tmask] > 0).all()):
+        raise AssertionError(f"N={n_train}: non-finite leaf moments or mlls")
+    oracle, worst_leaf = seed_errors(seed, mll, mu, var)
+    _gate(f"N={n_train} sampled leaves vs the float64 seed",
+          {k: oracle[k] / ORACLE_TOL[k] for k in ORACLE_TOL}, 1.0)
+    lw64, z_rep = np_update_weights(model.plan, mll)
+    rep_mean, rep_var = np_moment_match(model.plan, mu, var, lw64, tidx, tmask,
+                                        T_TEST)
+    combine = _moment_errors(mean, v, rep_mean, rep_var)
+    combine["evidence_abs"] = abs(float(z) - float(z_rep))
+    _gate(f"N={n_train} combine vs its float64 replica",
+          {k: combine[k] / COMBINE_TOL[k] for k in COMBINE_TOL}, 1.0)
+    fused = [(nm, len(ids)) for nm, ids in zip(model.bucket_spec.nmaxs,
+                                               model.bucket_spec.leaf_ids)
+             if fused_chol.supported(nm, model.dtype, model.layout.kinds,
+                                     model.device)]
+    line = dict(
+        leaves=model.num_leaves, buckets=len(model.bucket_batches),
+        largest_leaf=int(sizes.max()), fused_buckets=fused,
+        fused_launches=expected[0], blocked_launches=expected[1],
+        fused_shapes=sorted({s for k, s in shapes if k == "fused"}),
+        blocked_shapes=sorted({s for k, s in shapes if k == "blocked"}),
+        sampled_leaves=int(seed["leaves"].size),
+        sampled_tcount_equal=True, build_s=build_s,
+        metric=f"dsmgp_v3k4_depth4_fit_update_predict_n{n_train}_t{T_TEST}"
+               "_wallclock",
+        seconds=min(runs[1:] or runs), runs=runs, model_tflop=flops / 1e12,
+        model_tflop_per_s=flops / 1e12 / min(runs[1:] or runs),
+        peak_memory_allocated_bytes=peak[0], peak_memory_reserved_bytes=peak[1],
+        evidence_f32=float(z), errors_vs_seed=oracle,
+        worst_mll_leaf=worst_leaf, worst_mll_leaf_size=int(sizes[worst_leaf]),
+        combine_vs_replica=combine,
+        tolerances={"seed": ORACLE_TOL, "combine": COMBINE_TOL})
+    del model
+    torch.cuda.empty_cache()
+    if float64:
+        t0 = time.perf_counter()
+        model64 = frontier_model(n_train, torch.float64)
+        reset_launches()
+        mean64, v64, z64 = streamed_pipeline(model64)()
+        line["float64_s"] = time.perf_counter() - t0
+        if any(launches()):
+            raise AssertionError(f"the float64 pass launched {launches()}")
+        del model64
+        torch.cuda.empty_cache()
+        errs = slice_errors({"z": float(z), "preds": {T_TEST: (mean, v)}},
+                            {"z": float(z64), "preds": {T_TEST: (mean64, v64)}},
+                            sizes=(T_TEST,))
+        _gate(f"N={n_train} f32 vs f64",
+              {k: errs[k] / SLICE_TOL[k] for k in SLICE_TOL}, 1.0)
+        line.update(evidence_f64=float(z64), errors_f32_vs_f64=errs)
+        line["tolerances"]["f32"] = SLICE_TOL
+    say(f"frontier_n{n_train}", **line, card=card_line())
+    return tuple(len(runs) * e for e in expected)
+
+
+def phase_frontier():
+    """Phase 16 (module docstring); returns the ``(fused, blocked)``
+    launches of its counted passes."""
+    t_phase = time.perf_counter()
+    total = (0, 0)
+    for n_train, seed_file, passes, float64 in FRONTIER_RUNS:
+        got = _frontier_run(n_train, seed_file, passes, float64)
+        total = tuple(a + b for a, b in zip(total, got))
+    say("frontier", seconds=time.perf_counter() - t_phase, launches=total)
+    return total
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -3031,16 +3436,18 @@ def main():
     blocked_line = phase_potrf()
     run20k, run20k64 = phase_slice(20_000, expect_kernel=True)
     run100k, run100k64 = phase_slice(100_000, expect_kernel=False)
-    headline_s = phase_headline(run100k["model"])
-    depth4_launches = phase_depth4()
+    headline_s, headline_launches = phase_headline(run100k["model"])
+    depth4_fused, depth4_blocked = phase_depth4()
     refine_fused, refine_blocked = phase_refine(run20k, run20k64, run100k,
                                                 run100k64, headline_s)
     fused_launches = (run20k["fit_launches"] + run20k["predict_launches"]
-                      + depth4_launches + refine_fused)
+                      + depth4_fused + refine_fused)
+    blocked_launches = (run20k["blocked_launches"] + run100k["blocked_launches"]
+                        + headline_launches[1] + depth4_blocked + refine_blocked)
     phase_hybrid_20k(run20k, run20k64)
     ref20k = _ref(run20k64)
     del run20k, run20k64
-    blocked_launches = refine_blocked + phase_hybrid_100k(run100k, run100k64)
+    blocked_launches += phase_hybrid_100k(run100k, run100k64)
     ref100k = _ref(run100k64)
     del run100k, run100k64
     for n_train, kernel in FULL_STORE_RUNS:
@@ -3051,9 +3458,10 @@ def main():
     train_fused, train_blocked = phase_training()
     fused_launches += train_fused
     blocked_launches += train_blocked
-    fused_launches += phase_mesh(ref20k, ref100k)
-    fused_launches += phase_poe()
-    for fused, blocked in (phase_mixture(), phase_config5()):
+    mesh_fused, mesh_blocked = phase_mesh(ref20k, ref100k)
+    fused_launches += mesh_fused + phase_poe()
+    blocked_launches += mesh_blocked
+    for fused, blocked in (phase_mixture(), phase_config5(), phase_frontier()):
         fused_launches += fused
         blocked_launches += blocked
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):

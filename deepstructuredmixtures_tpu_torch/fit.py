@@ -2,9 +2,11 @@
 bucketed half of ``deepstructuredmixtures_tpu/fit.py``).
 
 * streamed (the light store): per leaf chunk the covariance is rebuilt,
-  factored (the fused CUDA kernel where it applies, else ``torch.linalg``)
-  and consumed; factors never persist. The alpha variants also keep the
-  O(N) weights ``alpha = K^{-1} y`` for the exact mean-only path;
+  factored (the fused CUDA kernel where it applies, the blocked CUDA
+  kernel above it on CUDA in float32, with float64 solves; else
+  ``torch.linalg``) and consumed; factors never persist. The alpha
+  variants also keep the O(N) weights ``alpha = K^{-1} y`` for the exact
+  mean-only path;
 * cached (the hybrid store): the chosen buckets keep their factors
   (factored by the fused kernel, else by the blocked CUDA kernel
   ``ops/potrf.py``), and a request runs only cross-grams and triangular
@@ -71,53 +73,33 @@ def _maybe_fused_chol(layout, theta, batch: LeafBatch):
         batch.x, batch.n, logl_v, logsigma_v, noise_v, eps=EPS)
 
 
-def _kept_recipe(layout, batch: LeafBatch) -> bool:
+def _kept_recipe(batch: LeafBatch) -> bool:
     """Whether the streamed path treats a chunk as the hybrid store does:
-    the blocked kernel's factor (:func:`_factor_kept`) and float64 solves
+    the blocked kernel's factor (:func:`_factor`) and float64 solves
     against it (:func:`_moments`). So it does on CUDA in float32 above
-    nmax 1024 for every kernel set but a single IsoSE. On an H100
-    cuSOLVER's float32 factor of a large IsoLinear or ArdSE leaf missed
-    its mll by 21-75% (backward error 5e-5-1.4e-4, the blocked kernel's
-    1.4e-6-1.4e-5), and float32 solves against the blocked factor put the
-    routed mean 1.1e-2-1.5e-2 from float64 (bound 5e-3;
-    ``chip_chol_routes.py``, ``PERF.md``). A single IsoSE keeps cuSOLVER
-    and float32 solves: within its bounds, where the blocked factor moved
-    its mean to 1.41e-2 (``chip_potrf_ab.py``)."""
-    return layout.kinds != ("iso_se",) and potrf.supported(
-        batch.nmax, batch.x.dtype, batch.x.device)
+    nmax 1024, whatever the kernel set. On an H100 cuSOLVER's float32
+    factor missed the leaf mll of large IsoLinear and ArdSE leaves by
+    21-75%, and of the IsoSE leaves of the depth-4 trees at N=500k and
+    N=1M by up to 7.8e-3 against their float64 oracles (bound 1e-3;
+    backward error 6e-6-1.3e-5 against the blocked kernel's 1.1e-6);
+    float32 solves put the routed mean up to 1.9e-2 from them (bound
+    5e-3). This route holds every sampled leaf within 1.0e-4 / 1.7e-4, and
+    the N=100k and N=500k pipelines ran 4% and 21% faster on it than on
+    cuSOLVER's (``chip_chol_routes.py``, ``PERF.md``)."""
+    return potrf.supported(batch.nmax, batch.x.dtype, batch.x.device)
 
 
 def _factor(layout, theta, batch: LeafBatch):
-    """The streamed factor: the fused kernel where it applies, the blocked
-    kernel under :func:`_kept_recipe`, else ``cholesky_nosym``."""
-    if _kept_recipe(layout, batch):
-        return _factor_kept(layout, theta, batch)
-    Lf = _maybe_fused_chol(layout, theta, batch)
-    if Lf is None:
-        Lf = chol.cholesky_nosym(_noisy_gram(layout, theta, batch))
-    return Lf
-
-
-def _factor_kept(layout, theta, batch: LeafBatch):
-    """Factors that the hybrid store keeps: the fused kernel where it
-    applies; else on CUDA in float32 the blocked kernel, in place on the
-    noisy gram; else ``cholesky_nosym``."""
+    """The factor of every path: the fused kernel where it applies; else
+    under :func:`_kept_recipe` the blocked kernel, in place on the noisy
+    gram; else ``cholesky_nosym``."""
     Lf = _maybe_fused_chol(layout, theta, batch)
     if Lf is not None:
         return Lf
     Kn = _noisy_gram(layout, theta, batch)
-    if potrf.supported(batch.nmax, Kn.dtype, Kn.device):
+    if _kept_recipe(batch):
         return potrf.blocked_cholesky(Kn)
     return chol.cholesky_nosym(Kn)
-
-
-#: the factor of the refined streamed path (``refine_steps > 0``): the
-#: blocked kernel above nmax 1024. On an H100 it made the refined N=100k
-#: headline 4.5-4.9% faster than cuSOLVER in three calls, with every float32
-#: error within the bounds after one step (``chip_potrf_ab.py
-#: --refine-steps 1``, ``PERF.md``). The unrefined path keeps
-#: :func:`_factor`: there the float32 solves put the mean past its bound.
-_factor_refined = _factor_kept
 
 
 def _forward_solve(layout, theta, batch: LeafBatch, Lf, xt, float64=False):
@@ -193,19 +175,17 @@ def streamed_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, xt,
     ``[y | K_nt]`` gives the mll (``y'α = ||z_y||²``), the mean
     ``m + V'z_y`` and the variance ``k_tt - ||V||² + noise``.
 
-    ``refine_steps > 0``: the chunk is factored by :data:`_factor_refined`,
-    its solves are refined jointly against true-K float64 residuals
-    (:func:`ops.refine.refine_joint`) and the moments and mll come back in
-    float64. Under :func:`_kept_recipe` the solve runs in float64 against
+    ``refine_steps > 0``: the chunk's solves are refined jointly against
+    true-K float64 residuals (:func:`ops.refine.refine_joint`) and the
+    moments and mll come back in float64. Else under :func:`_kept_recipe` the solve runs in float64 against
     the factor, as in :func:`cached_leaf_predict`.
     """
     chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
                 batch.num_leaves)
-    factor = _factor_refined if refine_steps else _factor
-    solve64 = not refine_steps and _kept_recipe(layout, batch)
+    solve64 = not refine_steps and _kept_recipe(batch)
     mus, vars_, mlls = [], [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
-        Lf = factor(layout, th, b)
+        Lf = _factor(layout, th, b)
         xt_leaf = xt if tidx is None else xt[tidx[s:e]]
         if refine_steps:
             Z = _forward_solve(layout, th, b, Lf, xt_leaf)
@@ -349,7 +329,7 @@ def streamed_leaf_factors(layout: HyperLayout, theta, batch: LeafBatch,
                          device=batch.x.device)
     mlls, alphas = [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
-        Lf = _factor_kept(layout, th, b)
+        Lf = _factor(layout, th, b)
         z = chol.solve_lower(Lf, centered_y(b)[..., None])
         alphas.append(_alpha(Lf, z)[..., 0])
         mlls.append(leaf_mll_forward(Lf, z[..., 0], b))
@@ -475,7 +455,7 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
     """Factor-reuse fit following the precompiled ``plan.SharedSchedule``.
 
     Phase 1 factors the ``full_idx`` leaves (mains and unshareable
-    leaves) through :func:`_factor_kept`, chunk by chunk, so on CUDA in
+    leaves) through :func:`_factor`, chunk by chunk, so on CUDA in
     float32 the fused and blocked kernels carry them; then the derived
     groups, each batched over its leaves: Givens row deletion (subset
     leaves, ``fit.jl:145-206``), delete-then-continue Cholesky (prefix
@@ -511,7 +491,7 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
     chunk = default_chunk(n, batch.x.dtype)
     for s in range(0, full.numel(), chunk):
         f = full[s:s + chunk]
-        Lf[f] = _factor_kept(layout, theta, batch.take(f))
+        Lf[f] = _factor(layout, theta, batch.take(f))
     tick("phase1")
 
     # phase 2a: Givens row deletion, in one wavefront for the strict-subset

@@ -40,9 +40,9 @@ def _fit(kind: str, nl: int, theta, x, yc):
     """``(L, mll)`` of the exact GP, ``y'K⁻¹y = ||L⁻¹y||²``. A covariance
     that is not positive definite gives an all-NaN factor, as XLA's
     Cholesky does in the JAX package; the NaN is added rather than written
-    in place, so that autograd runs through it. A kernel other than IsoSE
-    on CUDA in float32 above n = 1024 takes the training objective's kept
-    route (``train._KeptLeafMll``: the blocked CUDA kernel's factor, a
+    in place, so that autograd runs through it. On CUDA in float32 above
+    n = 1024 the GP takes the training objective's kept route
+    (``train._KeptLeafMll``: the blocked CUDA kernel's factor, a
     closed-form float64 backward), as the leaf objective does under
     ``fit._kept_recipe``; its failed factor is non-finite, its mll NaN."""
     logl, logsigma, lognoise = _unpack(nl, theta)
@@ -50,7 +50,7 @@ def _fit(kind: str, nl: int, theta, x, yc):
     noise = torch.exp(2.0 * lognoise)
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
     Kn = K + (noise + EPS) * eye
-    if kind != "iso_se" and potrf.supported(x.shape[0], x.dtype, x.device):
+    if potrf.supported(x.shape[0], x.dtype, x.device):
         from .train import _KeptLeafMll
 
         mll, Lf = _KeptLeafMll.apply(Kn[None], yc[None], _mll)

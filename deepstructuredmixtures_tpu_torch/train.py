@@ -32,11 +32,11 @@ gram, noisy diagonal, a Cholesky whose failure is NaN added out of place,
 forward solve. It never goes through ``fit._factor``: the fused CUDA kernel
 has no backward, and ``cholesky_nosym`` writes its NaN into the factor in
 place, which autograd refuses. Where the streamed fit takes the kept route
-(``fit._kept_recipe``: CUDA, float32, nmax above 1024, any kernel set but
-a single IsoSE) the objective takes it too (:class:`_KeptLeafMll`): the
-blocked CUDA kernel's factor and the light fit's leaf mll forward, a
-closed-form float64 backward. Elsewhere only the refit at the end of
-``train`` and ``finetune`` runs the CUDA kernels.
+(``fit._kept_recipe``: CUDA, float32, nmax above 1024) the objective takes
+it too (:class:`_KeptLeafMll`): the blocked CUDA kernel's factor and the
+light fit's leaf mll forward, a closed-form float64 backward. Elsewhere
+only the refit at the end of ``train`` and ``finetune`` runs the CUDA
+kernels.
 
 Memory: gradients are evaluated leaf chunk by leaf chunk (the memory rule
 of ``fit._bucket_chunk``), each chunk's graph freed before the next, so
@@ -181,7 +181,7 @@ def _chunk_leaf_mll(layout, theta, batch: LeafBatch):
     :func:`_cholesky` and autograd."""
     Kn = _noisy_gram(layout, theta, batch)
     yc = centered_y(batch)
-    if fitlib._kept_recipe(layout, batch):
+    if fitlib._kept_recipe(batch):
         return _KeptLeafMll.apply(
             Kn, yc, lambda Lf, z: leaf_mll_forward(Lf, z, batch))[0]
     Lf = _cholesky(Kn)

@@ -384,7 +384,7 @@ def test_cuda_streamed_iso_linear_leaf_within_float32_bounds(cuda_device):
         gp.fit(store="light")
         torch.cuda.synchronize()
         assert potrf.LAUNCHES - before == (1 if dtype == torch.float32 else 0)
-        assert fitlib._kept_recipe(gp.layout, gp.bucket_batches[0]) == (
+        assert fitlib._kept_recipe(gp.bucket_batches[0]) == (
             dtype == torch.float32)
         mll[dtype] = float(gp.leaf_mlls()[0])
     assert abs(mll[torch.float32] - mll[torch.float64]) <= 1e-3 * abs(
@@ -481,3 +481,66 @@ def test_cuda_gp_iso_linear_mll_and_grad_within_float32_bounds(cuda_device):
         out[dtype] = (mll, g.double().cpu().numpy())
     _objective_within_float32_bounds(out)
     assert launched == {torch.float32: 2, torch.float64: 0}
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_largest_leaf_within_seed_gates(cuda_device):
+    """The largest sampled leaf of the scale frontier's N=1M depth-4 tree
+    (33,303 points) through the streamed path in float32
+    (``fit.streamed_leaf_predict`` on its one-leaf batch and its routed
+    test points): its mll, mean and variance against the float64 values of
+    ``n1m_sampled_moments.npz`` by the gates of ``chip_smoke.py`` phase 16
+    (mll 1e-3 relative to max(1, |mll|), mean 5e-3 absolute, variance 1e-3
+    relative)."""
+    import os
+
+    import chip_smoke
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    n_train = 1_000_000
+    model = chip_smoke.frontier_model(n_train, torch.float32, cuda_device)
+    seed = chip_smoke.load_seed(
+        os.path.join(chip_smoke.REPO, "n1m_sampled_moments.npz"), n_train,
+        chip_smoke.FRONTIER_DEPTH, chip_smoke.FRONTIER_M, model.num_leaves)
+    xt = np.linspace(-0.05, 1.05, chip_smoke.T_TEST).reshape(-1, 1)
+    tidx, tmask = model._route(xt)
+    chip_smoke.check_seed_tree(seed, tmask)
+    sizes = np.array([o.size for o in model.plan.leaf_obs])
+    i = int(np.argmax(sizes[seed["leaves"]]))
+    leaf = int(seed["leaves"][i])
+    assert sizes[leaf] == 33_303
+    one = chip_smoke._leaf_batch(model, leaf)
+    ti = torch.as_tensor(tidx[leaf][None], dtype=torch.long, device=cuda_device)
+    xtd = torch.as_tensor(xt, dtype=torch.float32, device=cuda_device)
+    mu, var, mll = fitlib.streamed_leaf_predict(model.layout, model.theta, one,
+                                                xtd, ti, chunk=1)
+    torch.cuda.synchronize()
+    sampled = {k: seed[k][i:i + 1] for k in ("mlls", "mu", "var", "tcount")}
+    errs, _ = chip_smoke.seed_errors(dict(sampled, leaves=np.array([0])),
+                                     mll.cpu().numpy(), mu.cpu().numpy(),
+                                     var.cpu().numpy())
+    print(f"frontier leaf {leaf} (n={sizes[leaf]}): {errs}")
+    assert all(errs[k] <= chip_smoke.ORACLE_TOL[k]
+               for k in chip_smoke.ORACLE_TOL), errs
+
+
+@pytest.mark.cuda
+def test_cuda_training_objective_iso_se_frontier_leaf_within_float32_bounds(
+        cuda_device):
+    """The training objective (value and tied gradient) of the IsoSE leaf
+    of the scale frontier's N=500k depth-4 tree on which cuSOLVER's
+    float32 factor missed the streamed mll most (leaf 17962, 7,183 points:
+    7.8e-3 relative on an H100), in float32 against float64: the kept
+    route, one blocked launch, within 1e-3 / 1e-2."""
+    import chip_smoke
+
+    out, launched = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        m = chip_smoke.frontier_model(500_000, dtype, cuda_device)
+        assert int(chip_smoke._leaf_batch(m, 17962).n[0]) == 7183
+        before = potrf.LAUNCHES
+        out[dtype] = chip_smoke._leaf_objective(m, 17962)[:2]
+        launched[dtype] = potrf.LAUNCHES - before
+        del m
+    _objective_within_float32_bounds(out)
+    assert launched == {torch.float32: 1, torch.float64: 0}

@@ -3,15 +3,15 @@ Cholesky's factor, the light fit's leaf mll, a closed-form float64
 backward) against the JAX package, in float64 on the CPU.
 
 On the card the objective takes that route under ``fit._kept_recipe``
-(CUDA, float32, nmax above 1024, any kernel set but a single IsoSE). Here
+(CUDA, float32, nmax above 1024, whatever the kernel set). Here
 the route is forced (``ops.potrf.supported`` patched), so the objective
 factors with the blocked kernel's plain version, and held to JAX's
 ``train._chunk_leaf_mll`` and ``jax.grad`` at 1e-10 on padded toy leaves
-(IsoLinear, ArdSE D=2, a mixture; tied and per-leaf hypers), to
+(IsoSE, IsoLinear, ArdSE D=2, a mixture; tied and per-leaf hypers), to
 ``gradcheck``, to JAX's NaN on a leaf that is not positive definite, and
 through ``make_value_and_grad_bucketed`` and one ``finetune`` iteration
-on a mixture tree to JAX at 1e-8; ``GaussianProcess(IsoLinear)`` on the
-same route to JAX's at 1e-10; ``chip_smoke.py``'s launch counts of the
+on a mixture tree to JAX at 1e-8; ``GaussianProcess`` (IsoLinear, IsoSE)
+on the same route to JAX's at 1e-10; ``chip_smoke.py``'s launch counts of the
 objective to the calls. Each JAX reference is computed once per test
 session (``session_refs.once``); torch runs on one thread.
 """
@@ -49,7 +49,8 @@ NVALID = (24, 19, 13, 7)
 
 
 def _kernels(pkg, kind):
-    return {"iso_linear": [pkg.IsoLinear(0.3)],
+    return {"iso_se": [pkg.IsoSE(-0.5, 0.2)],
+            "iso_linear": [pkg.IsoLinear(0.3)],
             "ard_se": [pkg.ArdSE([0.2, -0.4], 0.1)],
             "mixture": [pkg.IsoSE(-0.5, 0.2), pkg.ArdSE([-0.3], 0.0),
                         pkg.IsoLinear(-0.2)]}[kind]
@@ -81,11 +82,14 @@ def _thetas(kind):
 #: the weights of the leaf mlls in the differentiated sum
 WEIGHTS = np.array([0.7, -1.3, 0.4, 2.1])
 
-CASES = [(k, h) for k in ("iso_linear", "ard_se", "mixture")
+CASES = [(k, h) for k in ("iso_se", "iso_linear", "ard_se", "mixture")
          for h in ("tied", "per_leaf")]
 #: the GP's data: 30 points in 2-D (``tests/test_torch_gp.py``'s shape)
 _rng = np.random.default_rng(5)
 GP_DATA = (_rng.normal(size=(30, 2)), _rng.normal(size=30))
+#: the GP's kernels
+GP_KERNELS = {"iso_linear": lambda pkg: pkg.IsoLinear(0.4),
+              "iso_se": lambda pkg: pkg.IsoSE(0.1, 0.2)}
 
 
 def _jax_refs():
@@ -110,9 +114,11 @@ def _jax_refs():
     out["nan_mll"] = jax.jit(f)(th, jb)
     out["nan_grad"] = jax.jit(jax.grad(lambda t: jnp.sum(f(t, jb))))(th)
     x, y = GP_DATA
-    gp = dsm.GaussianProcess(x, y, kernel=dsm.IsoLinear(0.4), log_noise=-1.0)
-    out["gp_mll"], out["gp_grad"] = gp.mll(), gp.grad_mll()
-    out["gp_mean"], out["gp_var"] = gp.predict(x[:5])
+    for kind in GP_KERNELS:
+        gp = dsm.GaussianProcess(x, y, kernel=GP_KERNELS[kind](dsm),
+                                 log_noise=-1.0)
+        out[f"gp_{kind}_mll"], out[f"gp_{kind}_grad"] = gp.mll(), gp.grad_mll()
+        out[f"gp_{kind}_mean"], out[f"gp_{kind}_var"] = gp.predict(x[:5])
     return out
 
 
@@ -147,7 +153,7 @@ def test_kept_objective_matches_jax(refs, kept, kind, hypers):
     """Leaf mlls and the hyper gradient of their weighted sum, through one
     blocked factor of the whole (padded) batch."""
     layout, batch = _port_batch(kind)
-    assert tfit._kept_recipe(layout, batch)
+    assert tfit._kept_recipe(batch)
     th = torch.tensor(_thetas(kind)[hypers], requires_grad=True)
     mll = ttrain._chunk_leaf_mll(layout, th, batch)
     assert mll.grad_fn.name() == "_KeptLeafMllBackward"
@@ -184,7 +190,7 @@ def test_kept_objective_nan_on_a_leaf_not_positive_definite(refs, kept):
     th = torch.tensor(initial_vector(kern, -30.0), dtype=torch.float32,
                       requires_grad=True)
     layout = make_layout(kern)
-    assert tfit._kept_recipe(layout, tb)
+    assert tfit._kept_recipe(tb)
     mll = ttrain._chunk_leaf_mll(layout, th, tb)
     mll.sum().backward()
     assert kept == [(2, 8, 8)]
@@ -194,19 +200,30 @@ def test_kept_objective_nan_on_a_leaf_not_positive_definite(refs, kept):
     assert np.isnan(refs["nan_grad"]).all() and torch.isnan(th.grad).all()
 
 
+def _gp_matches_jax(refs, kept, kind):
+    x, y = GP_DATA
+    gp = tdsm.GaussianProcess(x, y, kernel=GP_KERNELS[kind](tdsm),
+                              log_noise=-1.0, device="cpu")
+    np.testing.assert_allclose(gp.mll(), refs[f"gp_{kind}_mll"], rtol=RTOL)
+    np.testing.assert_allclose(gp.grad_mll().numpy(), refs[f"gp_{kind}_grad"],
+                               rtol=RTOL, atol=RTOL)
+    for p, j in zip(gp.predict(x[:5]), (refs[f"gp_{kind}_mean"],
+                                        refs[f"gp_{kind}_var"])):
+        np.testing.assert_allclose(p.numpy(), j, rtol=RTOL, atol=1e-12)
+    assert kept == [(1, 30, 30)] * 2  # the fit, then grad_mll
+
+
 def test_kept_gp_matches_jax(refs, kept):
     """``GaussianProcess(IsoLinear)`` on the kept route (``gp._fit``
     through ``train._KeptLeafMll``): its mll, ``grad_mll`` and predict from
     the blocked factor are JAX's."""
-    x, y = GP_DATA
-    gp = tdsm.GaussianProcess(x, y, kernel=tdsm.IsoLinear(0.4), log_noise=-1.0,
-                              device="cpu")
-    np.testing.assert_allclose(gp.mll(), refs["gp_mll"], rtol=RTOL)
-    np.testing.assert_allclose(gp.grad_mll().numpy(), refs["gp_grad"],
-                               rtol=RTOL, atol=RTOL)
-    for p, j in zip(gp.predict(x[:5]), (refs["gp_mean"], refs["gp_var"])):
-        np.testing.assert_allclose(p.numpy(), j, rtol=RTOL, atol=1e-12)
-    assert kept == [(1, 30, 30)] * 2  # the fit, then grad_mll
+    _gp_matches_jax(refs, kept, "iso_linear")
+
+
+def test_kept_gp_iso_se_matches_jax(refs, kept):
+    """``GaussianProcess(IsoSE)`` takes the same route as every other
+    kernel (``gp._fit`` reads no kernel kind) and matches JAX's."""
+    _gp_matches_jax(refs, kept, "iso_se")
 
 
 @pytest.fixture(scope="module")
@@ -221,7 +238,7 @@ def test_kept_value_and_grad_and_finetune_match_jax(mixture_refs, kept):
     graph pass) and one ``finetune`` iteration match JAX at 1e-8."""
     r = mixture_refs
     tm = mixture_port()
-    assert all(tfit._kept_recipe(tm.layout, b) for b in tm.bucket_batches)
+    assert all(tfit._kept_recipe(b) for b in tm.bucket_batches)
     vg = ttrain.make_value_and_grad_bucketed(tm.layout, tm.plan,
                                              tm.bucket_batches,
                                              tm.bucket_spec.leaf_ids)

@@ -221,7 +221,7 @@ def test_port_never_imports_jax():
         "potrf.supported = lambda nmax, dtype, device: True\n"
         "m = t.build_dsmgp(x, y, M=20, kernel=k, device='cpu', seed=1,"
         " do_fit=False, overlap=False)\n"
-        "assert all(fit._kept_recipe(m.layout, b) for b in m.bucket_batches)\n"
+        "assert all(fit._kept_recipe(b) for b in m.bucket_batches)\n"
         "t.train(m, iterations=1, randinit=False)\n"
         "t.train_gp(t.GaussianProcess(x, y, kernel=t.IsoLinear(0.0),"
         " device='cpu'), iterations=1, randinit=False)\n"

@@ -18,7 +18,7 @@ last chunk is simply shorter; the JAX package pads it to a full chunk for
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -38,6 +38,7 @@ from .leafgp import (
 )
 from .ops import cholesky as chol
 from .ops import fused_chol, potrf, refine
+from .utils import profiling
 
 
 def _noisy_gram(layout, theta, batch):
@@ -46,12 +47,12 @@ def _noisy_gram(layout, theta, batch):
     return chol.masked_gram_noise(K, batch.mask, noise, EPS)
 
 
-def _maybe_fused_chol(layout, theta, batch: LeafBatch):
-    """Factors from the fused CUDA gram+Cholesky kernel when it applies
-    (``fused_chol.supported``: CUDA, float32, one IsoSE kernel, nmax a
-    multiple of 128 up to 1024), else ``None``. Takes tied (``theta [P]``)
-    and per-leaf (``theta [L, P]``) hypers; the kernel reads per-leaf
-    scalars either way."""
+def _fused_args(layout, theta, batch: LeafBatch):
+    """The fused CUDA gram+Cholesky kernel's per-leaf ``(logl, logsigma,
+    noise)`` when it applies (``fused_chol.supported``: CUDA, float32, one
+    IsoSE kernel, nmax a multiple of 128 up to 1024), else ``None``. Takes
+    tied (``theta [P]``) and per-leaf (``theta [L, P]``) hypers; the kernel
+    reads per-leaf scalars either way."""
     if theta.ndim not in (1, 2) or len(layout.kinds) != 1:
         return None
     if not fused_chol.supported(batch.nmax, batch.x.dtype, layout.kinds,
@@ -69,8 +70,16 @@ def _maybe_fused_chol(layout, theta, batch: LeafBatch):
         logl_v = logl[:, 0].contiguous()
         logsigma_v = logsigma.contiguous()
         noise_v = torch.exp(2.0 * lognoise)
-    return fused_chol.fused_gram_cholesky(
-        batch.x, batch.n, logl_v, logsigma_v, noise_v, eps=EPS)
+    return logl_v, logsigma_v, noise_v
+
+
+def _maybe_fused_chol(layout, theta, batch: LeafBatch):
+    """Factors from the fused kernel when it applies (:func:`_fused_args`),
+    else ``None``."""
+    args = _fused_args(layout, theta, batch)
+    if args is None:
+        return None
+    return fused_chol.fused_gram_cholesky(batch.x, batch.n, *args, eps=EPS)
 
 
 def _kept_recipe(batch: LeafBatch) -> bool:
@@ -92,26 +101,34 @@ def _kept_recipe(batch: LeafBatch) -> bool:
 def _factor(layout, theta, batch: LeafBatch):
     """The factor of every path: the fused kernel where it applies; else
     under :func:`_kept_recipe` the blocked kernel, in place on the noisy
-    gram; else ``cholesky_nosym``."""
-    Lf = _maybe_fused_chol(layout, theta, batch)
-    if Lf is not None:
-        return Lf
-    Kn = _noisy_gram(layout, theta, batch)
-    if _kept_recipe(batch):
-        return potrf.blocked_cholesky(Kn)
-    return chol.cholesky_nosym(Kn)
+    gram; else ``cholesky_nosym``. Spans ``gram`` (not for the fused
+    kernel, which builds its own) and ``factor``, which carries the padded
+    work, ``padded_flops``."""
+    args = _fused_args(layout, theta, batch)
+    if args is None:
+        with profiling.span("gram"):
+            Kn = _noisy_gram(layout, theta, batch)
+    with profiling.span("factor",
+                        padded_flops=batch.num_leaves * batch.nmax ** 3 / 3):
+        if args is not None:
+            return fused_chol.fused_gram_cholesky(batch.x, batch.n, *args, eps=EPS)
+        if _kept_recipe(batch):
+            return potrf.blocked_cholesky(Kn)
+        return chol.cholesky_nosym(Kn)
 
 
 def _forward_solve(layout, theta, batch: LeafBatch, Lf, xt, float64=False):
     """``Z = L^{-1} [y | K_nt]``, the one solve per chunk of the predicts;
     with ``float64`` in float64 against the factor (cast per chunk)."""
-    Knt = leaf_gram(layout, theta, batch, xt)  # [C, Nmax, T]
-    Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
-    rhs = torch.cat([centered_y(batch)[..., None], Knt], dim=-1)
-    del Knt
-    if float64:
-        Lf, rhs = Lf.double(), rhs.double()
-    return chol.solve_lower(Lf, rhs)
+    with profiling.span("gram"):
+        Knt = leaf_gram(layout, theta, batch, xt)  # [C, Nmax, T]
+        Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
+        rhs = torch.cat([centered_y(batch)[..., None], Knt], dim=-1)
+        del Knt
+    with profiling.span("solve"):
+        if float64:
+            Lf, rhs = Lf.double(), rhs.double()
+        return chol.solve_lower(Lf, rhs)
 
 
 def _moments(layout, theta, batch: LeafBatch, Lf, xt, float64: bool):
@@ -121,12 +138,13 @@ def _moments(layout, theta, batch: LeafBatch, Lf, xt, float64: bool):
     ``z`` in the solve's dtype."""
     dt = batch.x.dtype
     Z = _forward_solve(layout, theta, batch, Lf, xt, float64)
-    z, V = Z[..., 0], Z[..., 1:]
-    mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
-    ktt = leaf_gram_diag(layout, theta, batch, xt)
-    noise = leaf_noise(layout, theta, batch)
-    var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
-    return mu.to(dt), var.to(dt), z
+    with profiling.span("moments"):
+        z, V = Z[..., 0], Z[..., 1:]
+        mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
+        ktt = leaf_gram_diag(layout, theta, batch, xt)
+        noise = leaf_noise(layout, theta, batch)
+        var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
+        return mu.to(dt), var.to(dt), z
 
 
 def _alpha(Lf, z):
@@ -185,15 +203,17 @@ def streamed_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, xt,
     solve64 = not refine_steps and _kept_recipe(batch)
     mus, vars_, mlls = [], [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
-        Lf = _factor(layout, th, b)
-        xt_leaf = xt if tidx is None else xt[tidx[s:e]]
-        if refine_steps:
-            Z = _forward_solve(layout, th, b, Lf, xt_leaf)
-            mu, var, mll = refine.refine_joint(layout, th, b, Lf, Z[..., 0],
-                                               Z[..., 1:], xt_leaf, refine_steps)
-        else:
-            mu, var, z = _moments(layout, th, b, Lf, xt_leaf, solve64)
-            mll = leaf_mll_forward(Lf, z, b).to(b.x.dtype)
+        with profiling.span("chunk", device=b.x.device, leaves=e - s):
+            Lf = _factor(layout, th, b)
+            xt_leaf = xt if tidx is None else xt[tidx[s:e]]
+            if refine_steps:
+                Z = _forward_solve(layout, th, b, Lf, xt_leaf)
+                mu, var, mll = refine.refine_joint(layout, th, b, Lf, Z[..., 0],
+                                                   Z[..., 1:], xt_leaf, refine_steps)
+            else:
+                mu, var, z = _moments(layout, th, b, Lf, xt_leaf, solve64)
+                with profiling.span("moments"):
+                    mll = leaf_mll_forward(Lf, z, b).to(b.x.dtype)
         mus.append(mu)
         vars_.append(var)
         mlls.append(mll)
@@ -240,16 +260,18 @@ def bucketed_streamed_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
     T = xt.shape[0] if tidx is None else tidx.shape[1]
     dev = batches[0].x.device
     dt = torch.float64 if refine_steps else batches[0].x.dtype
-    mu = torch.zeros((L, T), dtype=dt, device=dev)
-    var = torch.ones((L, T), dtype=dt, device=dev)
-    mll = torch.zeros((L,), dtype=dt, device=dev)
-    for b, ids in zip(batches, leaf_ids):
-        idx = _leaf_index(ids, dev)
-        th = theta if theta.ndim == 1 else theta[idx]
-        chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
-        ti = None if tidx is None else tidx[idx]
-        mu[idx], var[idx], mll[idx] = streamed_leaf_predict(
-            layout, th, b, xt, ti, chunk=chunk, refine_steps=refine_steps)
+    with profiling.span("streamed_predict", device=dev):
+        mu = torch.zeros((L, T), dtype=dt, device=dev)
+        var = torch.ones((L, T), dtype=dt, device=dev)
+        mll = torch.zeros((L,), dtype=dt, device=dev)
+        for b, ids in zip(batches, leaf_ids):
+            with profiling.span("bucket", nmax=b.nmax, leaves=b.num_leaves):
+                idx = _leaf_index(ids, dev)
+                th = theta if theta.ndim == 1 else theta[idx]
+                chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
+                ti = None if tidx is None else tidx[idx]
+                mu[idx], var[idx], mll[idx] = streamed_leaf_predict(
+                    layout, th, b, xt, ti, chunk=chunk, refine_steps=refine_steps)
     return mu, var, mll
 
 
@@ -357,8 +379,9 @@ def cached_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, Lf,
                 batch.num_leaves)
     mus, vars_ = [], []
     for s, e, b, th in _chunks(batch, theta, chunk):
-        xt_leaf = xt if tidx is None else xt[tidx[s:e]]
-        mu, var, _ = _moments(layout, th, b, Lf[s:e], xt_leaf, True)
+        with profiling.span("chunk", device=b.x.device, leaves=e - s):
+            xt_leaf = xt if tidx is None else xt[tidx[s:e]]
+            mu, var, _ = _moments(layout, th, b, Lf[s:e], xt_leaf, True)
         mus.append(mu)
         vars_.append(var)
     return torch.cat(mus), torch.cat(vars_)
@@ -377,16 +400,17 @@ def bucketed_hybrid_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
     mu = torch.zeros((L, T), dtype=dt, device=dev)
     var = torch.ones((L, T), dtype=dt, device=dev)
     for b, ids, cached in zip(batches, leaf_ids, factors):
-        idx = _leaf_index(ids, dev)
-        th = theta if theta.ndim == 1 else theta[idx]
-        chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
-        ti = None if tidx is None else tidx[idx]
-        if cached is not None:
-            mu[idx], var[idx] = cached_leaf_predict(
-                layout, th, b, cached[0], xt, ti, chunk=chunk)
-        else:
-            mu[idx], var[idx], _ = streamed_leaf_predict(
-                layout, th, b, xt, ti, chunk=chunk)
+        with profiling.span("bucket", device=dev, nmax=b.nmax, leaves=b.num_leaves):
+            idx = _leaf_index(ids, dev)
+            th = theta if theta.ndim == 1 else theta[idx]
+            chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
+            ti = None if tidx is None else tidx[idx]
+            if cached is not None:
+                mu[idx], var[idx] = cached_leaf_predict(
+                    layout, th, b, cached[0], xt, ti, chunk=chunk)
+            else:
+                mu[idx], var[idx], _ = streamed_leaf_predict(
+                    layout, th, b, xt, ti, chunk=chunk)
     return mu, var
 
 
@@ -407,27 +431,16 @@ def fit_batched(layout: HyperLayout, theta, batch: LeafBatch,
     return LeafPosterior(Lf, alpha, mll)
 
 
-def _phase_clock(split: Optional[dict], device):
-    """``tick(key)`` adds the seconds since the previous tick to
-    ``split[key]``, the device synchronized first; a no-op without
-    ``split``, so that an untimed fit never waits on the device."""
-    if split is None:
-        return lambda key: None
-    dev = torch.device(device)
-
-    def now():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
-
-    last = [now()]
-
-    def tick(key):
-        t = now()
-        split[key] = split.get(key, 0.0) + t - last[0]
-        last[0] = t
-
-    return tick
+@contextlib.contextmanager
+def _phase(key, device, timed):
+    """The span ``fit_shared.<key>`` of a phase of :func:`fit_shared`; with
+    ``timed`` (a list) recorded whatever the recording state, and appended
+    to it as ``(key, span)``."""
+    force = contextlib.nullcontext() if timed is None else profiling.recording()
+    with force, profiling.span("fit_shared." + key, device=device) as sp:
+        yield
+    if timed is not None:
+        timed.append((key, sp))
 
 
 def _gather_square(M, keep):
@@ -468,7 +481,9 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
     ``fit.jl:197-201,280-290``). ``with_diagnostics`` also returns
     ``(delete_fallbacks, continue_fallbacks)``. ``split``, a dict, gets
     the seconds of each phase (``phase1``, ``givens``, ``continue``,
-    ``copy``, ``posterior``), the device synchronized between phases.
+    ``copy``, ``posterior``) on the device (on the host for a CPU batch):
+    the phases' spans ``fit_shared.<phase>``, recorded for it
+    (``utils.profiling``) and read once the last has ended.
 
     Needs tied hypers (``theta`` 1-D): every derivation assumes a leaf
     and its main share one covariance function."""
@@ -478,7 +493,7 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
             "invalidate factor reuse; use fit_batched")
     L, n = batch.num_leaves, batch.nmax
     dev = batch.x.device
-    tick = _phase_clock(split, dev)
+    timed = None if split is None else []
 
     def idx(a):
         return torch.as_tensor(a, dtype=torch.long, device=dev)
@@ -487,12 +502,12 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
     del_fb = cont_fb = 0
 
     # phase 1: full factorizations (mains and unshareable leaves)
-    full = idx(schedule.full_idx)
-    chunk = default_chunk(n, batch.x.dtype)
-    for s in range(0, full.numel(), chunk):
-        f = full[s:s + chunk]
-        Lf[f] = _factor(layout, theta, batch.take(f))
-    tick("phase1")
+    with _phase("phase1", dev, timed):
+        full = idx(schedule.full_idx)
+        chunk = default_chunk(n, batch.x.dtype)
+        for s in range(0, full.numel(), chunk):
+            f = full[s:s + chunk]
+            Lf[f] = _factor(layout, theta, batch.take(f))
 
     # phase 2a: Givens row deletion, in one wavefront for the strict-subset
     # leaves and the mains of the continue leaves (which the continue
@@ -500,58 +515,60 @@ def fit_shared(layout: HyperLayout, theta, batch: LeafBatch, schedule,
     # delete for a pure prefix extension)
     n_del = schedule.del_j.size
     cont_dels = schedule.cont_del_ndel.max(initial=0) > 0
-    if n_del or cont_dels:
-        mains, pos, ndel = [schedule.del_i], [schedule.del_pos], [schedule.del_ndel]
-        if cont_dels:
-            mains.append(schedule.cont_i)
-            pos.append(schedule.cont_del_pos)
-            ndel.append(schedule.cont_del_ndel)
-        width = max(p.shape[1] for p in pos)
-        pos = np.concatenate([np.pad(p, ((0, 0), (0, width - p.shape[1])))
-                              for p in pos])
-        upd = chol.givens_delete_rows(Lf[idx(np.concatenate(mains))], idx(pos),
-                                      idx(np.concatenate(ndel)))
-    if n_del:
-        sub = batch.take(idx(schedule.del_j))
-        derived = chol.pad_identity(
-            torch.tril(_gather_square(upd[:n_del], idx(schedule.del_keep))),
-            sub.mask)
-        if safe:
-            del_fb = _guard(derived, sub.mask, lambda b: chol.cholesky_nosym(
-                _noisy_gram(layout, theta, sub.take(b))))
-        Lf[idx(schedule.del_j)] = derived
-        del derived
-    tick("givens")
+    with _phase("givens", dev, timed):
+        if n_del or cont_dels:
+            mains, pos, ndel = [schedule.del_i], [schedule.del_pos], [schedule.del_ndel]
+            if cont_dels:
+                mains.append(schedule.cont_i)
+                pos.append(schedule.cont_del_pos)
+                ndel.append(schedule.cont_del_ndel)
+            width = max(p.shape[1] for p in pos)
+            pos = np.concatenate([np.pad(p, ((0, 0), (0, width - p.shape[1])))
+                                  for p in pos])
+            upd = chol.givens_delete_rows(Lf[idx(np.concatenate(mains))], idx(pos),
+                                          idx(np.concatenate(ndel)))
+        if n_del:
+            sub = batch.take(idx(schedule.del_j))
+            derived = chol.pad_identity(
+                torch.tril(_gather_square(upd[:n_del], idx(schedule.del_keep))),
+                sub.mask)
+            if safe:
+                del_fb = _guard(derived, sub.mask, lambda b: chol.cholesky_nosym(
+                    _noisy_gram(layout, theta, sub.take(b))))
+            Lf[idx(schedule.del_j)] = derived
+            del derived
 
     # phase 2b: continue from row P: the (row-deleted) main's factor
     # gathered into the leading block
-    if schedule.cont_j.size:
-        sub = batch.take(idx(schedule.cont_j))
-        if cont_dels:
-            Ltop = _gather_square(upd[n_del:], idx(schedule.cont_keep))
-        else:
-            Ltop = Lf[idx(schedule.cont_i)]
-        A = _noisy_gram(layout, theta, sub)
-        derived = chol.pad_identity(
-            chol.chol_continue(A, Ltop, idx(schedule.cont_p)), sub.mask)
-        del Ltop
-        if safe:
-            cont_fb = _guard(derived, sub.mask,
-                             lambda b: chol.cholesky_nosym(A[b]))
-        Lf[idx(schedule.cont_j)] = derived
-        del A, derived
-    if n_del or cont_dels:
-        del upd
-    tick("continue")
+    with _phase("continue", dev, timed):
+        if schedule.cont_j.size:
+            sub = batch.take(idx(schedule.cont_j))
+            if cont_dels:
+                Ltop = _gather_square(upd[n_del:], idx(schedule.cont_keep))
+            else:
+                Ltop = Lf[idx(schedule.cont_i)]
+            A = _noisy_gram(layout, theta, sub)
+            derived = chol.pad_identity(
+                chol.chol_continue(A, Ltop, idx(schedule.cont_p)), sub.mask)
+            del Ltop
+            if safe:
+                cont_fb = _guard(derived, sub.mask,
+                                 lambda b: chol.cholesky_nosym(A[b]))
+            Lf[idx(schedule.cont_j)] = derived
+            del A, derived
+        if n_del or cont_dels:
+            del upd
 
     # phase 2c: verbatim copies, last (identical observation sets give
     # identical covariances under tied hypers)
-    if schedule.copy_j.size:
-        Lf[idx(schedule.copy_j)] = Lf[idx(schedule.copy_i)]
-    tick("copy")
+    with _phase("copy", dev, timed):
+        if schedule.copy_j.size:
+            Lf[idx(schedule.copy_j)] = Lf[idx(schedule.copy_i)]
 
-    post = posterior_from_chol(Lf, batch)
-    tick("posterior")
+    with _phase("posterior", dev, timed):
+        post = posterior_from_chol(Lf, batch)
+    for key, sp in timed or ():
+        split[key] = split.get(key, 0.0) + sp.seconds()
     if with_diagnostics:
         return post, (del_fb, cont_fb)
     return post

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .plan import SPNPlan
+from .utils import profiling
 
 
 def _index(a, device):
@@ -80,19 +81,19 @@ def update_weights(plan: SPNPlan, leaf_mlls):
     (≙ ``update!``, ``common.jl:323-334``): every sum node's edge weights
     become ``normalize(-log K + child mll)``. Returns ``(logweights [E],
     z_root)``."""
-    leaf_mlls = leaf_mlls.double()
     dev = leaf_mlls.device
-    vals = upward(plan, leaf_mlls)
-    lw = torch.zeros((max(plan.n_sum_edges, 1),), dtype=torch.float64, device=dev)
-    for g in plan.groups:
-        if g.kind != "sum":
-            continue
-        seg = _index(g.seg, dev)
-        raw = vals[_index(g.child_slots, dev)] + torch.as_tensor(
-            g.neg_logk, dtype=torch.float64, device=dev)
-        z = _segment_logsumexp(raw, seg, g.n_parents)
-        lw[_index(g.edge_ids, dev)] = raw - z[seg]
-    return lw, vals[plan.root_slot]
+    with profiling.span("update_weights", device=dev):
+        vals = upward(plan, leaf_mlls.double())
+        lw = torch.zeros((max(plan.n_sum_edges, 1),), dtype=torch.float64, device=dev)
+        for g in plan.groups:
+            if g.kind != "sum":
+                continue
+            seg = _index(g.seg, dev)
+            raw = vals[_index(g.child_slots, dev)] + torch.as_tensor(
+                g.neg_logk, dtype=torch.float64, device=dev)
+            z = _segment_logsumexp(raw, seg, g.n_parents)
+            lw[_index(g.edge_ids, dev)] = raw - z[seg]
+        return lw, vals[plan.root_slot]
 
 
 def infer_weights(plan: SPNPlan, leaf_mlls):

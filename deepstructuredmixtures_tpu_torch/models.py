@@ -40,6 +40,7 @@ from .kernels import IsoSE, gram, gram_diag, normalize_kernels
 from .plan import (_round_up, bucket_batches, bucketize, build_schedule,
                    compile_tree)
 from .tree import build_tree, num_mixtures, stats
+from .utils import profiling
 
 __all__ = ["DSMGP", "PoE", "GPoE", "RBCM", "GaussianProcess", "build_dsmgp",
            "build_poe", "build_bcm"]
@@ -82,9 +83,10 @@ class BaseModel:
         self._giant_cfg = None  # (mesh, axis, block)
         self._giant_normal = None  # (normal buckets, their leaf ids)
         self.last_fit_diagnostics = {}
-        self.bucket_spec = bucketize(plan)
-        self.bucket_batches = bucket_batches(plan, self.bucket_spec, X, y,
-                                             dtype, self.device)
+        with profiling.span("buckets"):
+            self.bucket_spec = bucketize(plan)
+            self.bucket_batches = bucket_batches(plan, self.bucket_spec, X, y,
+                                                 dtype, self.device)
 
     @property
     def batch(self):
@@ -472,10 +474,11 @@ class BaseModel:
         multiple of 64 above, as in the JAX package."""
         from .utils.native import pack_routes, route_box
 
-        member = route_box(xt_np, self.plan.leaf_lb, self.plan.leaf_ub)  # [T, L]
-        t = max(int(member.sum(axis=0).max()), pad_multiple)
-        tmax = 1 << (t - 1).bit_length() if t <= 256 else _round_up(t, 64)
-        return pack_routes(member, tmax)
+        with profiling.span("route"):
+            member = route_box(xt_np, self.plan.leaf_lb, self.plan.leaf_ub)  # [T, L]
+            t = max(int(member.sum(axis=0).max()), pad_multiple)
+            tmax = 1 << (t - 1).bit_length() if t <= 256 else _round_up(t, 64)
+            return pack_routes(member, tmax)
 
 
 class DSMGP(BaseModel):
@@ -620,35 +623,36 @@ def _routed_moment_match(plan, mu, var, logweights, tidx, tmask, T):
     Runs in float64 whatever the leaf dtype: the ``E[μ²] − mean²``
     cancellation would otherwise floor the end-to-end variance of f32
     leaves. ``tidx`` is int64; returns ``(mean [T], var [T])``."""
-    pw = inferlib.path_logweights(plan, logweights.double())  # [L]
-    seg = tidx.reshape(-1)
-    msk = tmask.reshape(-1)
-    muf = mu.double().reshape(-1)
-    varf = torch.clamp_min(var.double(), EPS).reshape(-1)
-    wf = pw[:, None].expand(mu.shape).reshape(-1)
+    with profiling.span("moment_match", device=mu.device):
+        pw = inferlib.path_logweights(plan, logweights.double())  # [L]
+        seg = tidx.reshape(-1)
+        msk = tmask.reshape(-1)
+        muf = mu.double().reshape(-1)
+        varf = torch.clamp_min(var.double(), EPS).reshape(-1)
+        wf = pw[:, None].expand(mu.shape).reshape(-1)
 
-    def seg_reduce(x, fill, reduce):
-        init = torch.full((T,), fill, dtype=x.dtype, device=x.device)
-        return init.scatter_reduce(0, seg, torch.where(msk, x, fill),
-                                   reduce=reduce, include_self=True)
+        def seg_reduce(x, fill, reduce):
+            init = torch.full((T,), fill, dtype=x.dtype, device=x.device)
+            return init.scatter_reduce(0, seg, torch.where(msk, x, fill),
+                                       reduce=reduce, include_self=True)
 
-    shift = seg_reduce(muf, torch.inf, "amin") - 1.0
-    w = torch.where(msk, wf, -torch.inf)
+        shift = seg_reduce(muf, torch.inf, "amin") - 1.0
+        w = torch.where(msk, wf, -torch.inf)
 
-    def seg_lse(x):
-        m = seg_reduce(x, -torch.inf, "amax")
-        m_safe = torch.where(torch.isfinite(m), m, 0.0)
-        e = torch.where(msk, torch.exp(x - m_safe[seg]), 0.0)
-        s = torch.zeros((T,), dtype=x.dtype, device=x.device).index_add_(0, seg, e)
-        return m_safe + torch.log(s)
+        def seg_lse(x):
+            m = seg_reduce(x, -torch.inf, "amax")
+            m_safe = torch.where(torch.isfinite(m), m, 0.0)
+            e = torch.where(msk, torch.exp(x - m_safe[seg]), 0.0)
+            s = torch.zeros((T,), dtype=x.dtype, device=x.device).index_add_(0, seg, e)
+            return m_safe + torch.log(s)
 
-    lmu = seg_lse(w + torch.log(muf - shift[seg]))
-    lmu2 = seg_lse(w + torch.log(torch.clamp_min(muf * muf, 1e-300)))
-    lvar = seg_lse(w + torch.log(varf))
+        lmu = seg_lse(w + torch.log(muf - shift[seg]))
+        lmu2 = seg_lse(w + torch.log(torch.clamp_min(muf * muf, 1e-300)))
+        lvar = seg_lse(w + torch.log(varf))
 
-    mean = torch.exp(lmu) + shift
-    v = torch.exp(lvar) + (torch.exp(lmu2) - mean * mean)
-    return mean, v
+        mean = torch.exp(lmu) + shift
+        v = torch.exp(lvar) + (torch.exp(lmu2) - mean * mean)
+        return mean, v
 
 
 def _resolve_pad_multiple(pad_multiple, dtype, kernels, device) -> int:
@@ -667,19 +671,22 @@ def _resolve_pad_multiple(pad_multiple, dtype, kernels, device) -> int:
 
 def _build(cls, x, y, config: DSMGPConfig, device, seed, dtype, do_fit, tau,
            pad_multiple, overlap, overlap_format):
-    x = as_2d(x)
-    y = np.asarray(y, dtype=np.float64).reshape(-1)
-    dtype = dtype or default_dtype(device)
-    root = build_tree(x, y, config, np.random.default_rng(seed))
-    plan = compile_tree(
-        root, x, overlap=overlap, overlap_format=overlap_format,
-        pad_multiple=_resolve_pad_multiple(pad_multiple, dtype,
-                                           config.kernels, device))
-    kernels = normalize_kernels(config.kernels)
-    model = cls(root, plan, make_layout(kernels),
-                initial_vector(kernels, config.observation_noise), dtype,
-                device, x, y,
-                schedule=build_schedule(plan, tau=tau) if overlap else None)
+    with profiling.span("build"):
+        x = as_2d(x)
+        y = np.asarray(y, dtype=np.float64).reshape(-1)
+        dtype = dtype or default_dtype(device)
+        with profiling.span("tree"):
+            root = build_tree(x, y, config, np.random.default_rng(seed))
+        with profiling.span("plan"):
+            plan = compile_tree(
+                root, x, overlap=overlap, overlap_format=overlap_format,
+                pad_multiple=_resolve_pad_multiple(pad_multiple, dtype,
+                                                   config.kernels, device))
+            schedule = build_schedule(plan, tau=tau) if overlap else None
+        kernels = normalize_kernels(config.kernels)
+        model = cls(root, plan, make_layout(kernels),
+                    initial_vector(kernels, config.observation_noise), dtype,
+                    device, x, y, schedule=schedule)
     if do_fit:
         model.fit()  # initial posterior fit (≙ treeStructure.jl:434)
     return model

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import itertools
 import json
 import queue
 import threading
@@ -32,6 +33,7 @@ import time
 import numpy as np
 
 from .config import as_2d
+from .utils import profiling
 
 
 def _host(t):
@@ -90,10 +92,11 @@ class Predictor:
                 vars_.append(v)
             return (np.concatenate(means),
                     np.concatenate(vars_) if return_var else None)
-        if not return_var and self._mean_only:
-            return _host(self.model.predict(x, return_var=False)), None
-        mean, var = self.model.predict(x)
-        return _host(mean), (_host(var) if return_var else None)
+        with profiling.span("predict.chunk", device=self.model.device, points=T):
+            if not return_var and self._mean_only:
+                return _host(self.model.predict(x, return_var=False)), None
+            mean, var = self.model.predict(x)
+            return _host(mean), (_host(var) if return_var else None)
 
     def _validate(self, x) -> np.ndarray:
         x = as_2d(np.asarray(x, dtype=np.float64))
@@ -128,16 +131,23 @@ class Predictor:
 
 
 class _Pending:
-    __slots__ = ("x", "want_var", "event", "mean", "var", "error",
-                 "latency_s", "batched_with")
+    """A request in the queue: ``id`` and ``batch`` (the id of the batch
+    that served it) join its spans; ``t_put`` is the span start
+    (``profiling.stamp``) of its put."""
 
-    def __init__(self, x, want_var):
+    __slots__ = ("id", "x", "want_var", "event", "mean", "var", "error",
+                 "latency_s", "batched_with", "batch", "t_put")
+
+    def __init__(self, x, want_var, id=None):
+        self.id = id
         self.x = x
         self.want_var = want_var
         self.event = threading.Event()
         self.mean = self.var = self.error = None
         self.latency_s = 0.0
         self.batched_with = 1
+        self.batch = None
+        self.t_put = None
 
 
 class MicroBatcher:
@@ -156,7 +166,9 @@ class MicroBatcher:
     predicts. ``stats`` counts requests, batches, rows and the largest
     batch. :meth:`close` fails every request not served yet, the batch in
     flight included, instead of leaving it to wait out
-    ``request_timeout_s``.
+    ``request_timeout_s``. Spans (``utils.profiling``): per request
+    ``serve.queue`` and ``serve.request``, per batch ``serve.collect`` and
+    ``serve.batch``.
     """
 
     def __init__(self, predictor: Predictor, max_batch_points: int = 1024,
@@ -172,6 +184,8 @@ class MicroBatcher:
         self._stop = False
         self.stats = {"requests": 0, "batches": 0, "batched_points": 0,
                       "largest_batch": 0}
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -180,8 +194,9 @@ class MicroBatcher:
         calling thread, so a malformed request raises to its own caller and
         never reaches a batch."""
         x = self.pred._validate(x)
-        item = _Pending(x, bool(return_var))
+        item = _Pending(x, bool(return_var), next(self._request_ids))
         t0 = time.perf_counter()
+        item.t_put = profiling.stamp()
         self._q.put(item)
         if not item.event.wait(timeout=self.request_timeout_s):
             raise TimeoutError(
@@ -223,7 +238,18 @@ class MicroBatcher:
             self._fail(list(self._inflight))
         self._fail_pending()
 
+    @staticmethod
+    def _take(item, batch_id):
+        """``item`` joins the batch ``batch_id``: its ``serve.queue`` span
+        ends."""
+        item.batch = batch_id
+        profiling.record("serve.queue", item.t_put, time.perf_counter_ns(),
+                         request=item.id, batch=batch_id)
+
     def _collect(self, first: "_Pending"):
+        batch_id = next(self._batch_ids)
+        t_first = profiling.stamp()
+        self._take(first, batch_id)
         batch, rows = [first], first.x.shape[0]
         deadline = time.perf_counter() + self.max_wait_s
         while rows < self.max_batch_points and not self._stop:
@@ -237,8 +263,11 @@ class MicroBatcher:
             if rows + item.x.shape[0] > self.max_batch_points:
                 self._held = item  # opens the next batch
                 break
+            self._take(item, batch_id)
             batch.append(item)
             rows += item.x.shape[0]
+        profiling.record("serve.collect", t_first, time.perf_counter_ns(),
+                         batch=batch_id, requests=len(batch), points=rows)
         return batch
 
     def _serve(self, group, want_var):
@@ -246,7 +275,9 @@ class MicroBatcher:
         the group, so that one bad batch never kills the worker."""
         try:
             xs = np.concatenate([it.x for it in group], axis=0)
-            mean, var, _ = self.pred.predict(xs, return_var=want_var)
+            with profiling.span("serve.batch", batch=group[0].batch,
+                                requests=len(group), points=int(xs.shape[0])):
+                mean, var, _ = self.pred.predict(xs, return_var=want_var)
             self.stats["requests"] += len(group)
             self.stats["batches"] += 1
             self.stats["batched_points"] += int(xs.shape[0])
@@ -258,6 +289,8 @@ class MicroBatcher:
                 it.mean = mean[off:off + t]
                 it.var = var[off:off + t] if want_var else None
                 it.batched_with = len(group)
+                profiling.record("serve.request", it.t_put, time.perf_counter_ns(),
+                                 request=it.id, batch=it.batch)
                 it.event.set()
                 off += t
         except Exception as e:  # delivered to every waiter

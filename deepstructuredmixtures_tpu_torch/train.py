@@ -59,6 +59,7 @@ from .leafgp import LeafBatch, centered_y, leaf_mll_forward
 from .ops import cholesky as chol
 from .ops import potrf
 from .plan import MixtureOverlap, SPNPlan
+from .utils import profiling
 
 __all__ = ["train", "train_gp", "finetune", "make_mll_fn",
            "make_mll_fn_bucketed", "make_value_and_grad_bucketed",
@@ -115,8 +116,9 @@ def _rmsprop(params):
 
 def _ascend(opt, param, g):
     """One optimizer step along ``+g``."""
-    param.grad = -g
-    opt.step()
+    with profiling.span("train.step", device=param.device):
+        param.grad = -g
+        opt.step()
 
 
 # ---------------------------------------------------------------------------
@@ -269,25 +271,32 @@ def make_value_and_grad_bucketed(layout, plan: SPNPlan, batches, leaf_ids,
     bucket without a graph, (2) the responsibilities from the small SPN
     pass, (3) per bucket and leaf chunk, the chunk recomputed with a graph
     and its backward run at once with the cotangent ``r`` of its leaves.
-    Peak memory stays one chunk's graph."""
+    Peak memory stays one chunk's graph. Spans ``train.value`` (1),
+    ``train.responsibilities`` (2), and per leaf chunk ``train.recompute``
+    and ``train.backward`` (3)."""
     L = plan.num_leaves
     fns = _bucket_fns(layout, batches, leaf_ids, budget)
     dt, dev = batches[0].x.dtype, batches[0].x.device
 
     def vg(theta):
         th = theta.detach().requires_grad_(True)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("train.value", device=dev):
             mll = torch.zeros((L,), dtype=dt, device=dev)
             for f, idx, _ in fns:
                 mll[idx] = f(_rows(th, idx))
             value = inferlib.root_mll(plan, mll)
-        r = inferlib.leaf_responsibilities(plan, mll).to(dt)
+        with profiling.span("train.responsibilities", device=dev):
+            r = inferlib.leaf_responsibilities(plan, mll).to(dt)
         with torch.enable_grad():
             for (_, idx, chunk), b in zip(fns, batches):
                 for s in range(0, b.num_leaves, chunk):
                     ids = idx[s:s + chunk]
-                    _chunk_leaf_mll(layout, _rows(th, ids),
-                                    b.rows(s, s + chunk)).backward(r[ids])
+                    leaves = b.rows(s, s + chunk)
+                    with profiling.span("train.recompute", device=dev,
+                                        leaves=leaves.num_leaves):
+                        m = _chunk_leaf_mll(layout, _rows(th, ids), leaves)
+                    with profiling.span("train.backward", device=dev):
+                        m.backward(r[ids])
         return value, th.grad
 
     return vg

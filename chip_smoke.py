@@ -8,7 +8,7 @@ non-zero; no phase catches its own failure or falls back to the CPU):
 
 0. environment: a CUDA device is required; card name and power limit,
    torch, CUDA and nvcc versions;
-1. build both CUDA kernels (``deepstructuredmixtures_tpu_torch/csrc``),
+1. build the three CUDA kernels (``deepstructuredmixtures_tpu_torch/csrc``),
    one nvcc per source, in parallel, into ``build/kernels/``;
 2. the fused gram+Cholesky kernel against its plain PyTorch version in
    float32 and float64 on the card, at the bucket shapes of the fit paths
@@ -27,6 +27,17 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    contract checked exactly; the three timed with CUDA events, the
    kernel in place on a fresh copy whose own time (``copy_ms``) is
    subtracted; no kernel time may stand below its bound;
+3b. the forward-solve-and-moments kernel (``ops/trsm.py``) against its
+   plain version in float64: one leaf table that mixes buckets ((1,
+   16232), (13, 3176), (17, 1040), identity-padded) at widths 1, 2, 65 and
+   321 (``TRSM_TOL``), a factor with a NaN coming back non-finite on its
+   leaf alone; then held to ``TRSM_TOL`` and timed with CUDA events beside
+   its bound, the plain
+   version and cuBLAS's ``trsm`` on a float64 copy (the library call the
+   kernel replaced, per bucket, the cast untimed): one serving predict
+   chunk of 256 points over all 144 cached leaves of the N=100k model
+   (W = 65, one launch) and the streamed pass's two largest one-leaf
+   chunks at T=2000 (W = 321);
 4. the headline model (V=3, K=4, M=30, depth 2, IsoSE, log noise -1,
    seed 0) at N=20,000: ``build_dsmgp`` → ``fit`` → ``update`` →
    ``predict`` at 1, 64 and 2000 test points in float32, checked against
@@ -183,7 +194,11 @@ non-zero; no phase catches its own failure or falls back to the CPU):
    pass on the card. The wall-clock, the model's TFLOPs and their rate,
    peak memory;
 17. a JSON line of the kernels, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. A kernel's launches there are those
+   of phases 4-16, the main path; the forward-solve kernel's are counted
+   per phase (``launches_by_phase``), and the streamed slices, the
+   headline, the depth-4 pipeline, every cached predict and the frontier
+   hold theirs to the plan's count.
 """
 from __future__ import annotations
 
@@ -237,6 +252,13 @@ POTRF_SHAPES = [(1, 4576), (1, 8296), (1, 16232), (13, 3176), (17, 1040),
 # max abs factor error vs float64: the bound of tests/test_pallas_potrf.py:43,
 # or 4x cholesky_ex's own float32 error on the same input where that is
 # larger (float32 error grows with the condition number at n ~ 16k)
+# phase 3b: the leaf table, the widths, and the largest relative error of
+# vz, vv and z against the plain version: both are float64 solves on the
+# same float32 factor in another order, whose forward error is at most
+# about n eps cond(L) (16232 x 1.1e-16 x about 250 here)
+TRSM_SHAPES = [(1, 16232), (13, 3176), (17, 1040)]
+TRSM_WIDTHS = (1, 2, 65, 321)
+TRSM_TOL = 1e-9
 POTRF_TOL, POTRF_LIB_FACTOR = 5e-4, 4.0
 # and within this multiple of the plain version's float32 error on the same
 # input: the plain version shares the kernel's blocking and its product with
@@ -304,6 +326,48 @@ def launches():
     from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
 
     return fused_chol.LAUNCHES, potrf.LAUNCHES
+
+
+def trsm_launches():
+    """Forward-solve kernel launches (``ops/trsm.py``) so far."""
+    from deepstructuredmixtures_tpu_torch.ops import trsm
+
+    return trsm.LAUNCHES
+
+
+#: the bytes a forward-solve launch of the predicts may take (the default
+#: ``budget`` of ``fit.bucketed_hybrid_predict`` and ``cached_leaf_predict``)
+PREDICT_BUDGET = 2 << 30
+
+
+def _predict_trsm_launches(model, xt_np, return_var=True):
+    """Forward-solve launches of one ``model.predict(xt_np)`` on the full
+    or the hybrid store: the cached predict's launch groups
+    (``fit._launch_groups``) at the request's routed width, and one per
+    leaf chunk of an uncached bucket on the kernel's route
+    (``fit._kept_recipe``); none on the mean-only path of the alpha
+    cache."""
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+
+    if model._giant:
+        raise ValueError("the giant leaves' distributed predict is not counted here")
+    if not return_var and model._alpha_cache is not None:
+        return 0
+    if model.posterior is None and model._bucket_factors is None:
+        raise ValueError("not a model of the full or the hybrid store")
+    T = model._route(xt_np)[0].shape[1]
+    row = fitlib._launch_row_bytes(1 + T, model.dtype.itemsize)
+    if model.posterior is not None:
+        cached = [(model.batch.nmax, model.batch.num_leaves)]
+        streamed = []
+    else:
+        pairs = list(zip(model.bucket_batches, model._bucket_factors))
+        cached = [(b.nmax, b.num_leaves) for b, f in pairs if f is not None]
+        streamed = [b for b, f in pairs if f is None and fitlib._kept_recipe(b)]
+    return len(fitlib._launch_groups(cached, row, PREDICT_BUDGET)) + sum(
+        -(-b.num_leaves // fitlib._bucket_chunk(b.nmax, b.num_leaves, b.x.dtype,
+                                                PREDICT_BUDGET))
+        for b in streamed)
 
 
 def cuda_ms(fn, warmup=3, reps=20):
@@ -590,6 +654,143 @@ def phase_potrf():
     return tot
 
 
+def _trsm_rel_err(got, want):
+    """Largest ``|got - want|`` over ``max |want|`` of each pair."""
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-300))
+               for g, w in zip(got, want) if w.numel())
+
+
+def _trsm_check(factors, rhs):
+    """The kernel against the plain version on one table: relative error
+    of vz, vv and z, each leaf's outputs finite."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.ops import trsm
+
+    got = trsm.forward_solve_moments(factors, rhs, want_z=True)
+    torch.cuda.synchronize()
+    want = trsm.forward_solve_moments_reference(factors, rhs, want_z=True)
+    return (_trsm_rel_err([got[0], got[1], *got[2]], [want[0], want[1], *want[2]]),
+            got)
+
+
+def _trsm_timed(factors, rhs, label, reps):
+    """Kernel, plain version and cuBLAS's float64 ``trsm`` (per entry, on
+    a float64 copy made outside the timed call) on one table, with its
+    bound: float64 operations over the padded columns (n² per column) at
+    67 TFLOP/s (the tensor cores' DMMA), or the float32 lower triangles
+    and the right-hand sides read once at 3.35 TB/s."""
+    import torch
+
+    from deepstructuredmixtures_tpu_torch.ops import trsm
+
+    width = rhs[0].shape[-1]
+    err, _ = _trsm_check(factors, rhs)
+    if not (err <= TRSM_TOL):
+        raise AssertionError(f"trsm kernel at {label}: rel err {err} (bound {TRSM_TOL})")
+    ms = cuda_ms(lambda: trsm.forward_solve_moments(factors, rhs), warmup=2, reps=reps)
+    plain_ms = cuda_ms(lambda: trsm.forward_solve_moments_reference(factors, rhs),
+                       warmup=1, reps=max(2, reps // 4))
+    lib_ms = 0.0
+    for Lf, B in zip(factors, rhs):
+        L64, B64 = Lf.double(), B.double()
+        lib_ms += cuda_ms(lambda: torch.linalg.solve_triangular(L64, B64, upper=False),
+                          warmup=1, reps=max(2, reps // 4))
+        del L64, B64
+    torch.cuda.empty_cache()
+    flops = sum(Lf.shape[0] * Lf.shape[1] ** 2 * width for Lf in factors)
+    nbytes = sum(Lf.shape[0] * Lf.shape[1] * (Lf.shape[1] / 2 + width) * 4 for Lf in factors)
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    b_ms = 1e3 * max(t_ops, t_bytes)
+    if not (ms >= b_ms):
+        raise AssertionError(f"trsm kernel at {label}: {ms} ms is below its bound {b_ms} ms")
+    say("trsm_timed", at=label, leaves=sum(Lf.shape[0] for Lf in factors), width=width,
+        rel_err_vs_plain=err, kernel_ms=ms, plain_ms=plain_ms, cublas_trsm_f64_ms=lib_ms,
+        bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
+        kernel_tflops=flops / ms / 1e9, kernel_over_cublas=ms / lib_ms, card=card_line())
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes", err=err)
+
+
+def phase_trsm():
+    """Phase 3b; returns the kernels-line entry (the serving chunk's
+    times, the largest error of the checked tables)."""
+    import torch
+
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch import fit as fitlib
+    from deepstructuredmixtures_tpu_torch.ops import potrf, trsm
+
+    factors, valid = [], []
+    for k, (G, n) in enumerate(TRSM_SHAPES):
+        a64, v = _spd_batch(G, n, 50 + k)
+        factors.append(potrf.blocked_cholesky(a64.float().contiguous()))
+        valid.append(v)
+        del a64
+    gen = torch.Generator(device="cuda")
+    max_err = 0.0
+    for width in TRSM_WIDTHS:
+        gen.manual_seed(width)
+        rhs = []
+        for Lf, v in zip(factors, valid):
+            B = torch.randn(Lf.shape[:2] + (width,), generator=gen, device="cuda")
+            for g, nv in enumerate(v):
+                B[g, nv:] = 0.0
+            rhs.append(B)
+        err, got = _trsm_check(factors, rhs)
+        if not (err <= TRSM_TOL) or not all(torch.isfinite(t).all() for t in
+                                            (got[0], got[1], *got[2])):
+            raise AssertionError(f"trsm kernel at width {width}: rel err {err} "
+                                 f"(bound {TRSM_TOL}) or non-finite output")
+        max_err = max(max_err, err)
+        say("trsm", width=width, tiles=trsm.column_tiles(width), rel_err_vs_plain=err,
+            bound=TRSM_TOL)
+    # a NaN in the second leaf of the ragged batch: that leaf alone non-finite
+    bad = factors[1].clone()
+    bad[1, 700, 300] = float("nan")
+    vz, vv, zs = trsm.forward_solve_moments([factors[0], bad], rhs[:2], want_z=True)
+    fin = torch.isfinite(vz).all(1) & torch.isfinite(vv).all(1)
+    if fin[2] or not (fin[:2].all() and fin[3:].all()) or torch.isfinite(zs[1][1]).all():
+        raise AssertionError("a NaN factor did not come back non-finite on its leaf alone")
+    del bad, vz, vv, zs, factors, rhs
+    torch.cuda.empty_cache()
+
+    # the serving path's chunk and the pass's largest one-leaf chunks
+    x, y = make_data(100_000)
+    model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                             log_noise=-1.0, seed=0, device="cuda",
+                             dtype=torch.float32, do_fit=False, overlap=False)
+    model.fit(store="hybrid", factor_budget=model._bucket_factor_bytes())
+    entries = model._bucket_factors
+    if not all(e is not None for e in entries):
+        raise AssertionError("not every bucket cached")
+    rng = np.random.default_rng(7)
+    line = None
+    for label, xt_np, picks in (
+            ("serve_chunk_256", rng.uniform(0.0, 1.0, (256, 1)), None),
+            ("pass_largest_leaves_T2000", np.linspace(-0.05, 1.05, T_TEST)[:, None], 2)):
+        tidx, _ = model._route(xt_np)
+        ti = torch.as_tensor(tidx, dtype=torch.long, device="cuda")
+        xt = torch.as_tensor(xt_np, dtype=torch.float32, device="cuda")
+        order = range(len(entries)) if picks is None else sorted(
+            range(len(entries)), key=lambda k: -model.bucket_batches[k].nmax)[:picks]
+        facs, rhs = [], []
+        for k in order:
+            b, ids = model.bucket_batches[k], model.bucket_spec.leaf_ids[k]
+            idx = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+            sl = slice(0, b.num_leaves if picks is None else 1)
+            facs.append(entries[k][0][sl])
+            rhs.append(fitlib._rhs(model.layout, model.theta, b.rows(sl.start, sl.stop),
+                                   xt[ti[idx][sl]]))
+        t = _trsm_timed(facs, rhs, label, reps=10 if picks is None else 5)
+        line = t if picks is None else line
+        max_err = max(max_err, t["err"])
+        del facs, rhs
+    del model, entries
+    torch.cuda.empty_cache()
+    return dict(line, max_abs_err=max_err)
+
+
 def _slice(n_train, dtype):
     """build → fit → update → predict at each request size; returns the
     model, evidence, predictions, the fused kernel's launches on fit and on
@@ -602,6 +803,7 @@ def _slice(n_train, dtype):
     x, y = make_data(n_train)
     xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
     reset_launches()
+    trsm0 = trsm_launches()
     t0 = time.perf_counter()
     model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
                              log_noise=-1.0, seed=0, device="cuda", dtype=dtype,
@@ -625,18 +827,23 @@ def _slice(n_train, dtype):
         preds[size] = (mean, var)
     predict_launches = launches()[0] - fit_launches
     # the blocked kernel once per leaf chunk above nmax 1024, in the fit and
-    # in each streamed predict
+    # in each streamed predict; the forward-solve kernel once per such chunk
+    # of each predict
     per_pass = _expected_launches(model)[1]
     if (blocked, launches()[1]) != (per_pass, (1 + len(REQUEST_SIZES)) * per_pass):
         raise AssertionError(f"the blocked kernel launched {blocked} times on "
                              f"the fit and {launches()[1]} in all, {per_pass} "
                              "per pass expected")
+    solves = trsm_launches() - trsm0
+    if solves != len(REQUEST_SIZES) * per_pass:
+        raise AssertionError(f"the forward-solve kernel launched {solves} times, "
+                             f"{per_pass} per predict expected")
     if model.posterior is not None:
         raise AssertionError(f"fit() kept the full store at N={n_train}")
     return dict(model=model, z=z, preds=preds, build_s=build_s, fit_s=fit_s,
                 predict_s=predict_s, fit_launches=fit_launches,
                 predict_launches=predict_launches,
-                blocked_launches=launches()[1])
+                blocked_launches=launches()[1], trsm_launches=solves)
 
 
 def slice_errors(run32, run64, sizes=REQUEST_SIZES):
@@ -687,6 +894,7 @@ def phase_slice(n_train, expect_kernel):
         launches_fit=run32["fit_launches"],
         launches_predict=run32["predict_launches"],
         blocked_launches=run32["blocked_launches"],
+        trsm_launches=run32["trsm_launches"],
         build_s=run32["build_s"], fit_s=run32["fit_s"],
         predict_s={str(k): v for k, v in run32["predict_s"].items()},
         evidence_f32=run32["z"], evidence_f64=run64["z"], errors_f32_vs_f64=errs,
@@ -749,10 +957,14 @@ def phase_headline(model):
 
     expected = tuple(4 * n for n in _expected_launches(model))
     reset_launches()
+    trsm0 = trsm_launches()
     times, (mean, v, _) = headline_times(model)
     if launches() != expected or expected[0]:
         raise AssertionError(f"the headline launched {launches()}, expected "
                              f"{expected}")
+    if trsm_launches() - trsm0 != expected[1]:
+        raise AssertionError(f"the headline's forward solves launched "
+                             f"{trsm_launches() - trsm0} times, expected {expected[1]}")
     if not (torch.isfinite(mean).all() and torch.isfinite(v).all()):
         raise AssertionError("headline pipeline gave non-finite moments")
     say("headline", metric="dsmgp_v3k4_fit_update_predict_n100000_t2000_wallclock",
@@ -812,13 +1024,15 @@ def phase_depth4():
     fused_chol.fused_gram_cholesky = recording
     try:
         reset_launches()
+        trsm0 = trsm_launches()
         pipeline()  # the first run builds nothing new: phase 1 built the kernels
         got, blocked = launches()
+        solves = trsm_launches() - trsm0
     finally:
         fused_chol.fused_gram_cholesky = kernel
-    if (got, blocked) != expected:
-        raise AssertionError(f"depth 4: launches {(got, blocked)}, expected "
-                             f"{expected}")
+    if (got, blocked, solves) != expected + expected[1:]:
+        raise AssertionError(f"depth 4: launches {(got, blocked)} and {solves} "
+                             f"forward solves, expected {expected + expected[1:]}")
     if len(shapes) != got or any(N > fused_chol.MAX_N for _, N in shapes):
         raise AssertionError(f"depth 4: the fused kernel saw the shapes {shapes}")
     times = []
@@ -915,8 +1129,10 @@ def _timed_predicts(model, **kw):
     xt = np.linspace(-0.05, 1.05, T_TEST).reshape(-1, 1)
     preds, secs = {}, {}
     before = launches()
+    trsm0, solves = trsm_launches(), 0
     for size in REQUEST_SIZES:
         sel = np.linspace(0, T_TEST - 1, size).astype(int)
+        solves += _predict_trsm_launches(model, xt[sel], kw.get("return_var", True))
         t0 = time.perf_counter()
         out = model.predict(xt[sel], **kw)
         torch.cuda.synchronize()
@@ -927,6 +1143,9 @@ def _timed_predicts(model, **kw):
         preds[size] = out
     if launches() != before:
         raise AssertionError("a kernel launched on a cached predict")
+    if trsm_launches() - trsm0 != solves:
+        raise AssertionError(f"the cached predicts launched {trsm_launches() - trsm0} "
+                             f"forward solves, expected {solves}")
     return preds, secs
 
 
@@ -3345,12 +3564,14 @@ def _frontier_run(n_train, seed_file, passes, float64):
     runs = []
     for _ in range(passes):
         reset_launches()
+        trsm0 = trsm_launches()
         t0 = time.perf_counter()
         out = pipeline()
         runs.append(time.perf_counter() - t0)
-        if launches() != expected:
-            raise AssertionError(f"N={n_train}: launches {launches()}, the "
-                                 f"plan counts {expected}")
+        if launches() != expected or trsm_launches() - trsm0 != expected[1]:
+            raise AssertionError(f"N={n_train}: launches {launches()} and "
+                                 f"{trsm_launches() - trsm0} forward solves, the "
+                                 f"plan counts {expected} and {expected[1]}")
     peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
     mean, v, z, mu, var, mll = out
     del out, pipeline
@@ -3396,10 +3617,12 @@ def _frontier_run(n_train, seed_file, passes, float64):
         t0 = time.perf_counter()
         model64 = frontier_model(n_train, torch.float64)
         reset_launches()
+        trsm0 = trsm_launches()
         mean64, v64, z64 = streamed_pipeline(model64)()
         line["float64_s"] = time.perf_counter() - t0
-        if any(launches()):
-            raise AssertionError(f"the float64 pass launched {launches()}")
+        if any(launches()) or trsm_launches() != trsm0:
+            raise AssertionError(f"the float64 pass launched {launches()} and "
+                                 f"{trsm_launches() - trsm0} forward solves")
         del model64
         torch.cuda.empty_cache()
         errs = slice_errors({"z": float(z), "preds": {T_TEST: (mean, v)}},
@@ -3432,36 +3655,51 @@ def main():
     import torch
 
     phase_build()
+    from deepstructuredmixtures_tpu_torch.ops import trsm
+
     max_err, ms, plain_ms, fused_bound, fused_bound_by = phase_kernel()
     blocked_line = phase_potrf()
-    run20k, run20k64 = phase_slice(20_000, expect_kernel=True)
-    run100k, run100k64 = phase_slice(100_000, expect_kernel=False)
-    headline_s, headline_launches = phase_headline(run100k["model"])
-    depth4_fused, depth4_blocked = phase_depth4()
-    refine_fused, refine_blocked = phase_refine(run20k, run20k64, run100k,
-                                                run100k64, headline_s)
+    trsm_line = phase_trsm()
+    # the forward-solve kernel's launches of each main-path phase
+    trsm_by_phase = {}
+
+    def counted(name, phase, *args):
+        trsm.LAUNCHES = 0
+        out = phase(*args)
+        trsm_by_phase[name] = trsm.LAUNCHES
+        return out
+
+    run20k, run20k64 = counted("slice_n20000", phase_slice, 20_000, True)
+    run100k, run100k64 = counted("slice_n100000", phase_slice, 100_000, False)
+    headline_s, headline_launches = counted("headline", phase_headline, run100k["model"])
+    depth4_fused, depth4_blocked = counted("depth4", phase_depth4)
+    refine_fused, refine_blocked = counted("refine", phase_refine, run20k, run20k64,
+                                           run100k, run100k64, headline_s)
     fused_launches = (run20k["fit_launches"] + run20k["predict_launches"]
                       + depth4_fused + refine_fused)
     blocked_launches = (run20k["blocked_launches"] + run100k["blocked_launches"]
                         + headline_launches[1] + depth4_blocked + refine_blocked)
-    phase_hybrid_20k(run20k, run20k64)
+    counted("hybrid_n20000", phase_hybrid_20k, run20k, run20k64)
     ref20k = _ref(run20k64)
     del run20k, run20k64
-    blocked_launches += phase_hybrid_100k(run100k, run100k64)
+    blocked_launches += counted("hybrid_n100000", phase_hybrid_100k, run100k, run100k64)
     ref100k = _ref(run100k64)
     del run100k, run100k64
     for n_train, kernel in FULL_STORE_RUNS:
-        fused, blocked = phase_full_store(n_train, kernel)
+        fused, blocked = counted(f"full_store_n{n_train}", phase_full_store, n_train,
+                                 kernel)
         fused_launches += fused
         blocked_launches += blocked
-    blocked_launches += phase_gp()[1]
-    train_fused, train_blocked = phase_training()
+    blocked_launches += counted("gp", phase_gp)[1]
+    train_fused, train_blocked = counted("training", phase_training)
     fused_launches += train_fused
     blocked_launches += train_blocked
-    mesh_fused, mesh_blocked = phase_mesh(ref20k, ref100k)
-    fused_launches += mesh_fused + phase_poe()
+    mesh_fused, mesh_blocked = counted("mesh", phase_mesh, ref20k, ref100k)
+    fused_launches += mesh_fused + counted("poe", phase_poe)
     blocked_launches += mesh_blocked
-    for fused, blocked in (phase_mixture(), phase_config5(), phase_frontier()):
+    for name, phase in (("mixture", phase_mixture), ("config5", phase_config5),
+                        ("frontier", phase_frontier)):
+        fused, blocked = counted(name, phase)
         fused_launches += fused
         blocked_launches += blocked
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
@@ -3490,6 +3728,19 @@ def main():
         "bound_ms": blocked_line["bound_ms"],
         "bound_by": blocked_line["bound_by"],
         "library_ms": blocked_line["library_ms"],
+    }, {
+        "name": "fused_trsm_moments",
+        "route": "cuda",
+        "source": "deepstructuredmixtures_tpu_torch/csrc/trsm_moments.cu",
+        "replaces": None,
+        "launches": sum(trsm_by_phase.values()),
+        "launches_by_phase": trsm_by_phase,
+        "max_abs_err": trsm_line["max_abs_err"],
+        "ms": trsm_line["ms"],
+        "plain_ms": trsm_line["plain_ms"],
+        "bound_ms": trsm_line["bound_ms"],
+        "bound_by": trsm_line["bound_by"],
+        "library_ms": trsm_line["library_ms"],
     }]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(card_line(), flush=True)

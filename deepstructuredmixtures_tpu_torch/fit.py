@@ -9,8 +9,8 @@ bucketed half of ``deepstructuredmixtures_tpu/fit.py``).
   mean-only path;
 * cached (the hybrid store): the chosen buckets keep their factors
   (factored by the fused kernel, else by the blocked CUDA kernel
-  ``ops/potrf.py``), and a request runs only cross-grams and triangular
-  solves against them.
+  ``ops/potrf.py``), and a request runs only cross-grams and one float64
+  forward solve with its moments (``ops/trsm.py``) over every cached leaf.
 
 A leaf-chunk loop is a Python ``for`` over slices of the bucket, so the
 last chunk is simply shorter; the JAX package pads it to a full chunk for
@@ -37,7 +37,7 @@ from .leafgp import (
     posterior_from_chol,
 )
 from .ops import cholesky as chol
-from .ops import fused_chol, potrf, refine
+from .ops import fused_chol, potrf, refine, trsm
 from .utils import profiling
 
 
@@ -117,34 +117,56 @@ def _factor(layout, theta, batch: LeafBatch):
         return chol.cholesky_nosym(Kn)
 
 
-def _forward_solve(layout, theta, batch: LeafBatch, Lf, xt, float64=False):
-    """``Z = L^{-1} [y | K_nt]``, the one solve per chunk of the predicts;
-    with ``float64`` in float64 against the factor (cast per chunk)."""
+def _rhs(layout, theta, batch: LeafBatch, xt):
+    """The predicts' right-hand side ``[y | K_nt]``, ``[L, nmax, 1 + T]``
+    in the batch's dtype (span ``gram``)."""
     with profiling.span("gram"):
         Knt = leaf_gram(layout, theta, batch, xt)  # [C, Nmax, T]
         Knt = torch.where(batch.mask[:, :, None], Knt, 0.0)
-        rhs = torch.cat([centered_y(batch)[..., None], Knt], dim=-1)
-        del Knt
+        return torch.cat([centered_y(batch)[..., None], Knt], dim=-1)
+
+
+def _forward_solve(layout, theta, batch: LeafBatch, Lf, xt):
+    """``Z = L^{-1} [y | K_nt]`` in the batch's dtype."""
+    rhs = _rhs(layout, theta, batch, xt)
     with profiling.span("solve"):
-        if float64:
-            Lf, rhs = Lf.double(), rhs.double()
         return chol.solve_lower(Lf, rhs)
 
 
-def _moments(layout, theta, batch: LeafBatch, Lf, xt, float64: bool):
-    """Per-leaf moments from the factors ``Lf``: with ``z, V`` from
-    :func:`_forward_solve`, the mean ``m + V'z`` and the variance ``k_tt -
-    ||V||² + noise``, in the batch's dtype. Returns ``(mu, var, z)``,
-    ``z`` in the solve's dtype."""
+def _finish(layout, theta, batch: LeafBatch, xt, vz, vv):
+    """The moments from the solve's two reductions ``vz = V'z`` and ``vv
+    = ||V||²``: the mean ``m + V'z`` and the variance ``k_tt - ||V||² +
+    noise``, in the batch's dtype."""
     dt = batch.x.dtype
-    Z = _forward_solve(layout, theta, batch, Lf, xt, float64)
+    mu = batch.mean[:, None] + vz
+    ktt = leaf_gram_diag(layout, theta, batch, xt)
+    noise = leaf_noise(layout, theta, batch)
+    var = ktt - vv + noise[:, None]
+    return mu.to(dt), var.to(dt)
+
+
+def _moments(layout, theta, batch: LeafBatch, Lf, xt, float64: bool):
+    """Per-leaf moments from the factors ``Lf`` and the forward solve of
+    ``[y | K_nt]``: the mean ``m + V'z`` and the variance ``k_tt - ||V||²
+    + noise``, in the batch's dtype. Returns ``(mu, var, z)``, ``z`` in the
+    solve's dtype. With ``float64`` the solve and both reductions run in
+    float64 against the factor as it is (:func:`ops.trsm.forward_solve_moments`:
+    the kernel on CUDA, no float64 copy of the factor); the span ``solve``
+    holds them, ``moments`` the rest."""
+    if float64:
+        rhs = _rhs(layout, theta, batch, xt)
+        with profiling.span("solve"):
+            vz, vv, z = trsm.forward_solve_moments([Lf.contiguous()], [rhs], want_z=True)
+        del rhs
+        with profiling.span("moments"):
+            mu, var = _finish(layout, theta, batch, xt, vz, vv)
+        return mu, var, z[0]
+    Z = _forward_solve(layout, theta, batch, Lf, xt)
     with profiling.span("moments"):
         z, V = Z[..., 0], Z[..., 1:]
-        mu = batch.mean[:, None] + torch.einsum("lnt,ln->lt", V, z)
-        ktt = leaf_gram_diag(layout, theta, batch, xt)
-        noise = leaf_noise(layout, theta, batch)
-        var = ktt - torch.sum(V * V, dim=-2) + noise[:, None]
-        return mu.to(dt), var.to(dt), z
+        mu, var = _finish(layout, theta, batch, xt, torch.einsum("lnt,ln->lt", V, z),
+                          torch.sum(V * V, dim=-2))
+        return mu, var, z
 
 
 def _alpha(Lf, z):
@@ -360,57 +382,126 @@ def streamed_leaf_factors(layout: HyperLayout, theta, batch: LeafBatch,
     return torch.cat(mlls), torch.cat(alphas), Lf_all
 
 
+def _launch_row_bytes(width: int, itemsize: int) -> int:
+    """Device bytes per factor row of one forward-solve launch of the
+    cached predict: the right-hand side and two cross-gram temporaries in
+    the batch's dtype, the kernel's float64 workspace."""
+    return 3 * width * itemsize + 8 * trsm.column_tiles(width)[0] * trsm.TILE
+
+
+def _launch_groups(sizes, row: int, budget: int):
+    """The leaves of each forward-solve launch of :func:`_cached_moments`:
+    ``sizes`` holds ``(nmax, leaves)`` per piece and ``row`` the bytes per
+    factor row (:func:`_launch_row_bytes`); a launch takes leaves in order
+    while they fit ``budget`` bytes, and at least one. Returns one list of
+    ``(piece, start, end)`` per launch."""
+    groups, group, used = [], [], 0
+    for k, (nmax, count) in enumerate(sizes):
+        per_leaf = nmax * row
+        s = 0
+        while s < count:
+            room = (budget - used) // per_leaf
+            if room < 1 and group:
+                groups.append(group)
+                group, used = [], 0
+                continue
+            e = min(count, s + max(1, room))
+            group.append((k, s, e))
+            used += (e - s) * per_leaf
+            s = e
+    if group:
+        groups.append(group)
+    return groups
+
+
+def _cached_moments(layout: HyperLayout, pieces, xt, budget: int):
+    """Per-leaf moments ``[(mu, var)]``, one pair per piece ``(batch,
+    theta, Lf, tidx)`` (cached factors ``Lf``; ``tidx`` as in
+    :func:`streamed_leaf_predict`, one ``tmax`` for all), from as few
+    forward-solve launches as ``budget`` bytes allow
+    (:func:`_launch_groups`): every leaf of the pieces in one launch at
+    the serving path's sizes. Per launch a span ``chunk`` (``leaves``) →
+    per piece ``gram`` (one cross-gram call), one ``solve``
+    (:func:`ops.trsm.forward_solve_moments`), per piece ``moments``."""
+    T = xt.shape[0] if pieces[0][3] is None else pieces[0][3].shape[1]
+    row = _launch_row_bytes(1 + T, pieces[0][0].x.dtype.itemsize)
+    out = [[] for _ in pieces]
+
+    def launch(group):
+        with profiling.span("chunk", device=pieces[0][0].x.device,
+                            leaves=sum(e - s for _, s, e in group)):
+            parts, factors, rhs = [], [], []
+            for k, s, e in group:
+                b, th, Lf, ti = pieces[k]
+                bb, tt = b.rows(s, e), th if th.ndim == 1 else th[s:e]
+                xl = xt if ti is None else xt[ti[s:e]]
+                parts.append((k, bb, tt, xl))
+                factors.append(Lf[s:e])
+                rhs.append(_rhs(layout, tt, bb, xl))
+            with profiling.span("solve"):
+                vz, vv, _ = trsm.forward_solve_moments(factors, rhs)
+            del rhs
+            first = 0
+            for k, bb, tt, xl in parts:
+                last = first + bb.num_leaves
+                with profiling.span("moments"):
+                    out[k].append(_finish(layout, tt, bb, xl, vz[first:last],
+                                          vv[first:last]))
+                first = last
+
+    for group in _launch_groups([(p[0].nmax, p[0].num_leaves) for p in pieces], row, budget):
+        launch(group)
+    return [(torch.cat([m for m, _ in o]), torch.cat([v for _, v in o])) for o in out]
+
+
 def cached_leaf_predict(layout: HyperLayout, theta, batch: LeafBatch, Lf,
-                        xt, tidx=None, chunk: Optional[int] = None):
-    """Per-leaf predictive moments from cached factors ``Lf``: a cross-gram
-    and one triangular solve per leaf chunk, O(n²t) per leaf and no
-    refactorization. Shapes and dtype as :func:`streamed_leaf_predict`,
-    without the mll.
+                        xt, tidx=None, budget: int = 2 << 30):
+    """Per-leaf predictive moments from cached factors ``Lf``: cross-grams
+    and the float64 forward solve with its moments, O(n²t) per leaf and no
+    refactorization (:func:`_cached_moments`). Shapes and dtype as
+    :func:`streamed_leaf_predict`, without the mll.
 
     As in the streamed path, one solve on ``[y | K_nt]`` gives ``z`` and
     ``V``; the mean is ``m + V'z`` and the variance ``k_tt - ||V||² +
-    noise``. The solve runs in float64 against the float32 factor (cast per
-    chunk; the cache stays float32): on the ill-conditioned large leaves
-    of the N=100k tree a float32 solve moves the routed mean past the
-    float32 bound of ``chip_smoke.py`` (``PERF.md``). The JAX package
-    solves in the model dtype and writes the mean ``m + K_nt'α``, equal in
-    exact arithmetic."""
-    chunk = min(chunk or default_chunk(batch.nmax, batch.x.dtype),
-                batch.num_leaves)
-    mus, vars_ = [], []
-    for s, e, b, th in _chunks(batch, theta, chunk):
-        with profiling.span("chunk", device=b.x.device, leaves=e - s):
-            xt_leaf = xt if tidx is None else xt[tidx[s:e]]
-            mu, var, _ = _moments(layout, th, b, Lf[s:e], xt_leaf, True)
-        mus.append(mu)
-        vars_.append(var)
-    return torch.cat(mus), torch.cat(vars_)
+    noise``. The solve runs in float64 against the float32 factor (the
+    cache stays float32; the kernel turns each element into float64 in
+    registers): on the ill-conditioned large leaves of the N=100k tree a
+    float32 solve moves the routed mean past the float32 bound of
+    ``chip_smoke.py`` (``PERF.md``). The JAX package solves in the model
+    dtype and writes the mean ``m + K_nt'α``, equal in exact arithmetic."""
+    return _cached_moments(layout, [(batch, theta, Lf, tidx)], xt, budget)[0]
 
 
 def bucketed_hybrid_predict(layout: HyperLayout, theta, batches, leaf_ids, L,
                             factors, xt, tidx=None, budget: int = 2 << 30):
     """Predict over size buckets with a partial factor cache: a bucket whose
-    entry of ``factors`` is ``(Lf, alpha)`` predicts from it
-    (:func:`cached_leaf_predict`), a bucket whose entry is ``None`` streams
-    (:func:`streamed_leaf_predict`). Returns ``(mu [L, T|tmax], var)`` in
-    global leaf order."""
+    entry of ``factors`` is ``None`` streams (:func:`streamed_leaf_predict`,
+    span ``bucket``), and every bucket whose entry is ``(Lf, alpha)``
+    predicts from its factors, all of them together
+    (:func:`_cached_moments`: one cross-gram call per bucket, one
+    forward-solve launch for all their leaves within ``budget``). Returns
+    ``(mu [L, T|tmax], var)`` in global leaf order."""
     T = xt.shape[0] if tidx is None else tidx.shape[1]
     dev = batches[0].x.device
     dt = batches[0].x.dtype
     mu = torch.zeros((L, T), dtype=dt, device=dev)
     var = torch.ones((L, T), dtype=dt, device=dev)
-    for b, ids, cached in zip(batches, leaf_ids, factors):
+    cached = []
+    for b, ids, entry in zip(batches, leaf_ids, factors):
+        idx = _leaf_index(ids, dev)
+        th = theta if theta.ndim == 1 else theta[idx]
+        ti = None if tidx is None else tidx[idx]
+        if entry is not None:
+            cached.append((idx, (b, th, entry[0], ti)))
+            continue
         with profiling.span("bucket", device=dev, nmax=b.nmax, leaves=b.num_leaves):
-            idx = _leaf_index(ids, dev)
-            th = theta if theta.ndim == 1 else theta[idx]
             chunk = _bucket_chunk(b.nmax, b.num_leaves, b.x.dtype, budget)
-            ti = None if tidx is None else tidx[idx]
-            if cached is not None:
-                mu[idx], var[idx] = cached_leaf_predict(
-                    layout, th, b, cached[0], xt, ti, chunk=chunk)
-            else:
-                mu[idx], var[idx], _ = streamed_leaf_predict(
-                    layout, th, b, xt, ti, chunk=chunk)
+            mu[idx], var[idx], _ = streamed_leaf_predict(
+                layout, th, b, xt, ti, chunk=chunk)
+    if cached:
+        moments = _cached_moments(layout, [p for _, p in cached], xt, budget)
+        for (idx, _), (m, v) in zip(cached, moments):
+            mu[idx], var[idx] = m, v
     return mu, var
 
 

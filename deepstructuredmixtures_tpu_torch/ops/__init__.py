@@ -1,6 +1,7 @@
 """Linear-algebra ops of the port: ``cholesky`` (torch.linalg), and the
-hand-written CUDA kernels ``fused_chol`` (gram + Cholesky) and ``potrf``
-(blocked Cholesky). The package exports the JAX package's six ``ops``
+hand-written CUDA kernels ``fused_chol`` (gram + Cholesky), ``potrf``
+(blocked Cholesky) and ``trsm`` (the predicts' float64 forward solve with
+its moments). The package exports the JAX package's six ``ops``
 names."""
 from .cholesky import (
     cho_solve_lower,

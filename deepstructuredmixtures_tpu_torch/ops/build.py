@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("fused_gram_cholesky", "blocked_cholesky")
+KERNELS = ("fused_gram_cholesky", "blocked_cholesky", "trsm_moments")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -66,10 +66,12 @@ The program's spans, and their attributes:
   cross-gram, its masking and the right-hand side), ``factor``
   (``padded_flops`` = leaves × nmax³ / 3: the fused kernel, which builds
   its gram itself, the blocked kernel or ``cholesky_nosym``), ``solve``
-  (the float64 cast and the forward solve), ``moments`` (mean, variance,
-  their casts; a second one for the leaf mll). The cached predict
-  (``fit.bucketed_hybrid_predict``, ``cached_leaf_predict``) has the same
-  ``bucket``, ``chunk``, ``gram``, ``solve`` and ``moments``;
+  (the forward solve; under ``fit._kept_recipe`` with both moment sums,
+  ``ops.trsm``), ``moments`` (mean, variance, their casts; a second one
+  for the leaf mll). The cached predict (``fit.bucketed_hybrid_predict``,
+  ``cached_leaf_predict``) gives per forward-solve launch a ``chunk``
+  (``leaves``) → ``gram`` per bucket, one ``solve``, ``moments`` per
+  bucket, and a ``bucket`` span per streamed bucket;
 * ``route`` (``models._route``, host), ``update_weights``
   (``infer.update_weights``), ``moment_match``
   (``models._routed_moment_match``);

@@ -1,5 +1,6 @@
-"""The CUDA kernels (fused gram+Cholesky, blocked Cholesky) against their
-plain PyTorch versions and float64, on the card. Skips without a CUDA
+"""The CUDA kernels (fused gram+Cholesky, blocked Cholesky, the forward
+solve with its moments) against their plain PyTorch versions and float64,
+on the card. Skips without a CUDA
 device (a kernel has no CPU mode).
 
 This file imports no JAX, so it also runs where JAX is not installed, as
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf
+from deepstructuredmixtures_tpu_torch.ops import fused_chol, potrf, trsm
 
 TOL = 5e-4  # max abs factor error, the bound of tests/test_pallas_chol.py
 POTRF_TOL = 5e-4  # the bound of tests/test_pallas_potrf.py
@@ -544,3 +545,120 @@ def test_cuda_training_objective_iso_se_frontier_leaf_within_float32_bounds(
         del m
     _objective_within_float32_bounds(out)
     assert launched == {torch.float32: 1, torch.float64: 0}
+
+
+@pytest.fixture(scope="module")
+def trsm_table():
+    """``(factors, valid)``: float32 factors of one leaf table that mixes
+    buckets, chip_smoke's ``TRSM_SHAPES`` ((1, 16232), (13, 3176), (17,
+    1040), the last matrix of each batch identity-padded), by the blocked
+    kernel; ``None`` without a card."""
+    if not torch.cuda.is_available():
+        return None
+    import chip_smoke
+
+    factors, valid = [], []
+    for k, (G, n) in enumerate(chip_smoke.TRSM_SHAPES):
+        a64, v = chip_smoke._spd_batch(G, n, 50 + k)
+        factors.append(potrf.blocked_cholesky(a64.float().contiguous()))
+        valid.append(v)
+    return factors, valid
+
+
+def _trsm_rhs(factors, valid, width, dtype=torch.float32):
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    rhs = []
+    for Lf, v in zip(factors, valid):
+        B = torch.randn(Lf.shape[:2] + (width,), generator=gen, device="cuda")
+        for g, nv in enumerate(v):
+            B[g, nv:] = 0.0
+        rhs.append(B.to(dtype))
+    return rhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", [(1, torch.float32), (2, torch.float32),
+                                         (65, torch.float32), (321, torch.float32),
+                                         (2, torch.float64), (65, torch.float64)],
+                         ids=["w1", "w2", "w65", "w321", "w2-float64", "w65-float64"])
+def test_cuda_trsm_moments_matches_plain(cuda_device, trsm_table, width, dtype):
+    """The kernel against its plain version (a float64 copy, LAPACK-style
+    ``solve_triangular``, an einsum) on the mixed table, at widths of one
+    column tile (1, 2, 65) and of five (321), and on float64 factors:
+    vz, vv and z within ``TRSM_TOL`` (1e-9) of the largest magnitude of
+    each. Both solve in float64 on the same operands, the blocked sums in
+    another order: the forward error of a triangular solve is at most
+    about n eps cond(L), 16232 x 1.1e-16 x about 250 here."""
+    import chip_smoke
+
+    factors, valid = trsm_table
+    factors = [Lf.to(dtype) for Lf in factors]
+    rhs = _trsm_rhs(factors, valid, width, dtype)
+    before = trsm.LAUNCHES
+    err, got = chip_smoke._trsm_check(factors, rhs)
+    assert trsm.LAUNCHES == before + 1
+    assert err <= chip_smoke.TRSM_TOL
+    assert all(torch.isfinite(t).all() for t in (got[0], got[1], *got[2]))
+
+
+@pytest.mark.cuda
+def test_cuda_trsm_moments_non_finite_factor(cuda_device, trsm_table):
+    """A NaN in one factor of the ragged batch (a leaf that is not
+    positive definite comes back so from the blocked kernel) makes that
+    leaf's vz, vv and z non-finite, as ``trsm`` gives it, and no other
+    leaf's."""
+    factors, valid = trsm_table
+    bad = factors[1].clone()
+    bad[1, 700, 300] = float("nan")
+    rhs = _trsm_rhs(factors, valid, 65)
+    vz, vv, zs = trsm.forward_solve_moments([factors[0], bad], rhs[:2], want_z=True)
+    ok = torch.isfinite(vz).all(1) & torch.isfinite(vv).all(1)
+    assert not ok[2] and ok[:2].all() and ok[3:].all()
+    assert not torch.isfinite(zs[1][1]).all() and torch.isfinite(zs[1][0]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_trsm_moments_rejects_unaligned_rows(cuda_device):
+    """The kernel copies factor rows 16 bytes at a time: a float32 factor
+    whose n is not a multiple of 4 (no bucket's is: every nmax is a
+    multiple of 8) raises before any launch, and the plain version takes
+    it on the CPU."""
+    n = 1030
+    Lf = torch.eye(n, device=cuda_device)[None] * 2.0
+    B = torch.ones((1, n, 3), device=cuda_device)
+    before = trsm.LAUNCHES
+    with pytest.raises(ValueError, match="16 bytes"):
+        trsm.forward_solve_moments([Lf], [B])
+    assert trsm.LAUNCHES == before
+    vz, vv, _ = trsm.forward_solve_moments([Lf.cpu()], [B.cpu()])
+    assert torch.allclose(vv, torch.full((1, 2), n / 4.0, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+def test_cuda_served_predict_one_trsm_launch(cuda_device):
+    """A served model (the headline's at N=20,000, every bucket cached by
+    ``Predictor``): each predict call launches the kernel once for all its
+    cached leaves, and a ``torch.profiler`` trace of one call holds no
+    cuBLAS ``trsm`` kernel, only the port's."""
+    import chip_smoke
+    import deepstructuredmixtures_tpu_torch as tdsm
+    from deepstructuredmixtures_tpu_torch.serve import Predictor
+
+    x, y = chip_smoke.make_data(20_000)
+    model = tdsm.build_dsmgp(x, y, V=3, K=4, M=30, kernel=tdsm.IsoSE(0.0, 0.0),
+                             log_noise=-1.0, seed=0, device=cuda_device,
+                             dtype=torch.float32, do_fit=False, overlap=False)
+    pred = Predictor(model, factor_budget=model._bucket_factor_bytes())
+    assert all(f is not None for f in model._bucket_factors)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        before = trsm.LAUNCHES
+        pred.predict(rng.uniform(0.0, 1.0, (200, 1)))
+        assert trsm.LAUNCHES == before + 1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.predict(rng.uniform(0.0, 1.0, (200, 1)))
+        torch.cuda.synchronize()
+    kernels = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    solves = {k for k in kernels if "trsm" in k.lower()}
+    assert solves and all("fused_trsm_moments_kernel" in k for k in solves), solves

@@ -147,18 +147,26 @@ def test_factor_spans_carry_the_padded_work(model, streamed_log):
 
 
 def test_cached_predict_spans(model):
+    """Every cached bucket in as few forward-solve launches as the budget
+    allows: per launch a ``chunk`` holding one ``gram`` and one
+    ``moments`` per bucket piece and one ``solve``; no streamed bucket."""
     factors = _factors(model)
-    with profiling.recording():
-        _cached(model, factors)
-    recs = profiling.records()
-    ids = {r["id"]: r["name"] for r in recs}
-    names = Counter(r["name"] for r in recs)
-    n = len(_chunks(model))
-    assert names["bucket"] == 2 and names["chunk"] == n
-    assert names["gram"] == names["solve"] == names["moments"] == n
-    assert "factor" not in names
-    assert all(ids[r["parent"]] == "chunk" for r in recs
-               if r["name"] in ("gram", "solve", "moments"))
+    total = sum(b.num_leaves for b in model.bucket_batches)
+    for budget, launches in ((BUDGET, None), (1 << 30, 1)):
+        profiling.clear()
+        with profiling.recording():
+            tfit.bucketed_hybrid_predict(*_args(model), factors, XT, budget=budget)
+        recs = profiling.records()
+        ids = {r["id"]: r["name"] for r in recs}
+        names = Counter(r["name"] for r in recs)
+        assert names["solve"] == names["chunk"] >= 1
+        assert names["gram"] == names["moments"] >= max(2, names["chunk"])
+        assert launches is None or names["chunk"] == launches
+        assert sum(r["attrs"]["leaves"] for r in recs if r["name"] == "chunk") == total
+        assert "factor" not in names and "bucket" not in names
+        assert all(ids[r["parent"]] == "chunk" for r in recs
+                   if r["name"] in ("gram", "solve", "moments"))
+    assert names["gram"] == 2  # one cross-gram call per bucket
 
 
 def test_spans_reach_the_profiler(model):

@@ -31,7 +31,7 @@ def run(run):
     if run.device != "cpu":
         build.build()  # nvcc once per checkout, then the cached libraries
     x, y = harness.make_data(cfg, run.seed)
-    xt = harness.test_points(cfg)
+    xt = harness.test_points(cfg, run.seed)
     T = xt.shape[0]
     with rec.span("build"):
         model = harness.build_model(cfg, x, y, run.device)

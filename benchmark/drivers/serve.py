@@ -5,17 +5,18 @@ Set-up builds the model and serves it through ``serve.MicroBatcher(
 serve.Predictor(model, ...))``: the predictor refits it with the hybrid
 store under ``factor_budget_bytes`` (null: every bucket's factors, the
 footprint counted from the buckets' shapes), and the posterior weights
-are updated from that fit (``model.update``). ``clients`` threads each send
-a request of ``points_per_request`` points drawn uniformly on ``[lo, hi]``
-from the seed (one stream per client), for the mean and variance, and send
-the next on reply. ``warm_rounds`` rounds of one request per client run in
-set-up. The window runs until ``seconds`` have passed and the requests
-sent inside it have their replies. With more clients than the server
-keeps up with, the loop holds it at capacity, so the end-to-end metric is
-``served_points_per_s``, the test points of every completed request over
-the window; each request is timed by the host clock from the client's call
-to its reply, for the per-layer tails. A traced run profiles the last
-batches of the window, about ``traced_batches`` + 2 of them.
+are updated from that fit (``model.update``). ``clients`` threads each
+send a request of ``points_per_request`` points drawn uniformly on ``[lo,
+hi]`` in each of the data's dimensions from the seed (one stream per
+client), for the mean and variance, and send the next on reply.
+``warm_rounds`` rounds of one request per client run in set-up. The window
+runs until ``seconds`` have passed and the requests sent inside it have
+their replies. With more clients than the server keeps up with, the loop
+holds it at capacity, so the end-to-end metric is ``served_points_per_s``,
+the test points of every completed request over the window; each request
+is timed by the host clock from the client's call to its reply, for the
+per-layer tails. A traced run profiles the last batches of the window,
+about ``traced_batches`` + 2 of them.
 """
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ import time
 import numpy as np
 
 from benchmark import harness, tracing
+
+
+#: the traced stretch's timing (:func:`_traced`): timed by the window's
+#: first three batches alone and with the profiler started at the stretch,
+#: a stretch sometimes began after the last batch and held nothing
+ESTIMATE_BEFORE_S = 5.0
+PROFILER_LEAD_S = 1.0
 
 
 def _footprint(model):
@@ -49,12 +57,12 @@ def run(run):
     model.update()  # the posterior weights from the predictor's fit, as a user serves them
     mb = serve.MicroBatcher(pred, max_batch_points=tr["max_batch_points"],
                             max_wait_ms=tr["max_wait_ms"])
-    C, P = tr["clients"], tr["points_per_request"]
+    C, P, D = tr["clients"], tr["points_per_request"], x.shape[1]
     key = harness.seed_key(run.seed)
     streams = [np.random.default_rng([key, 1, c]) for c in range(C)]
 
     def draw(rng):
-        return rng.uniform(tr["lo"], tr["hi"], (P, 1))
+        return rng.uniform(tr["lo"], tr["hi"], (P, D))
 
     try:
         warm = [np.random.default_rng([key, 2, c]) for c in range(C)]
@@ -122,16 +130,22 @@ def _traced(run, mb, batches, t0, deadline, threads):
     """Profile the window's last batches: from a batch boundary about
     ``batches`` + 2 batches before the deadline until every client has its
     last reply. The profiler stops, and its trace is read, only after the
-    clients are done, so that reading it delays no request; it was started
-    once in set-up (:func:`tracing.warm`), so it starts at once here."""
+    clients are done, so that reading it delays no request. The batch time
+    is the window's mean over at least three batches and until
+    ``ESTIMATE_BEFORE_S`` before the deadline, and the profiler starts
+    ``PROFILER_LEAD_S`` before the stretch, whose mark leaves out what it
+    records earlier."""
     b_start = mb.stats["batches"]
     # the window's first batch closes early on the clients that came first:
-    # average over three
+    # average over three at least
     while mb.stats["batches"] - b_start < 3 and time.perf_counter() < deadline:
         time.sleep(0.05)
+    time.sleep(max(0.0, deadline - ESTIMATE_BEFORE_S - time.perf_counter()))
     per_batch = (time.perf_counter() - t0) / max(1, mb.stats["batches"] - b_start)
-    time.sleep(max(0.0, deadline - (batches + 2) * per_batch - time.perf_counter()))
+    begin = deadline - (batches + 2) * per_batch
+    time.sleep(max(0.0, begin - PROFILER_LEAD_S - time.perf_counter()))
     with tracing.profiled(run) as stretch:
+        time.sleep(max(0.0, begin - time.perf_counter()))
         b0 = mb.stats["batches"]
         while mb.stats["batches"] == b0 and any(t.is_alive() for t in threads):
             time.sleep(0.001)

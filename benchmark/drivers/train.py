@@ -47,7 +47,7 @@ def run(run):
     vg = trainlib._train_vg(model)
     theta = model.theta.detach().clone().requires_grad_(True)
     opt = trainlib._adam([theta])
-    theta0 = theta.detach().double().cpu().numpy()
+    theta0 = _host(theta)
 
     def step():
         val, g = vg(theta)
@@ -61,9 +61,8 @@ def run(run):
         if s == 0:
             # an optimizer that took no step holds no state: it got nothing
             m = opt.state.get(theta, {}).get("exp_avg")
-            first_state = (np.zeros(theta.shape) if m is None
-                           else m.detach().double().cpu().numpy())
-    theta_k = theta.detach().double().cpu().numpy()
+            first_state = np.zeros(theta.shape) if m is None else _host(m)
+    theta_k = _host(theta)
     run.mark_setup()
 
     n, bad, window = harness.timed_window(
@@ -81,3 +80,10 @@ def run(run):
                    "leaf_n": np.array(run.work["leaf_n"])}
     del model, vg, theta, opt
     run.free_device()
+
+
+def _host(t):
+    """A float64 copy of ``t`` on the host: the optimizer updates its
+    tensors in place, and a float64 tensor on the CPU would otherwise be
+    shared, not copied."""
+    return t.detach().double().cpu().numpy().copy()

@@ -5,9 +5,11 @@ cell; and the guard against JAX in the process.
 
 Everything that belongs to one configuration, traffic mix or per-layer
 metric lives in a file of its own (``configs/``, ``traffic/``,
-``metrics/``), and a traffic mix names the driver of its kind
-(``drivers/<kind>.py``); this module reads them by the names the spec
-gives, so that a new cell needs new files and no edit here.
+``metrics/``); a traffic mix names the driver of its kind
+(``drivers/<kind>.py``), and a configuration its leaf kernels and its data
+recipe (``data/<recipe>.py``). This module reads them by the names the
+spec and the configuration give, so that a new cell needs new files and no
+edit here: it names no kernel kind and holds no data formula.
 """
 from __future__ import annotations
 
@@ -104,6 +106,12 @@ def load_reference(cfg):
     return importlib.import_module(f"benchmark.reference.{cfg['reference']}")
 
 
+def load_recipe(cfg):
+    """The configuration's data recipe, ``data/<cfg["data"]>.py``."""
+    name = cfg["data"]
+    return _load_file(HERE / "data" / f"{name}.py", f"portbench_data_{name}")
+
+
 def cell_metrics(spec, cell_name, trace):
     """The metric entries a run of ``cell_name`` reports: with ``trace`` the
     per-layer ones, else the end-to-end ones."""
@@ -127,33 +135,67 @@ def seed_key(seed):
 
 
 def make_data(cfg, seed):
-    """The configuration's training data from ``seed``: ``x`` uniform on
-    [0, 1], sorted, ``y = sin(4πx) + N(0, noise_std²)``."""
-    rng = np.random.default_rng(seed_key(seed))
-    x = np.sort(rng.uniform(0.0, 1.0, cfg["n_train"])).reshape(-1, 1)
-    y = np.sin(x[:, 0] * 4 * np.pi) + rng.normal(0.0, cfg["noise_std"], cfg["n_train"])
-    return x, y
+    """The configuration's training data ``(x [N, D], y [N])`` from
+    ``seed``, by its recipe's ``make``."""
+    return load_recipe(cfg).make(cfg, seed)
 
 
-def test_points(cfg):
-    return np.linspace(cfg["test_lo"], cfg["test_hi"], cfg["n_test"]).reshape(-1, 1)
+def test_points(cfg, seed=None):
+    """The configuration's test points ``[T, D]``, by its recipe's
+    ``test_points``; a recipe whose points depend on the seed needs it."""
+    return load_recipe(cfg).test_points(cfg, seed)
 
 
 def hypers(cfg):
-    """The starting hypers ``[logl, logsigma, lognoise]``."""
-    return np.array([cfg["logl"], cfg["logsigma"], cfg["log_noise"]], dtype=np.float64)
+    """The starting hypers in the port's packed layout, written from the
+    configuration: for each leaf kernel in order ``[logl..., logsigma,
+    log_noise]``, ``logsigma`` 0 for a kind without a variance (whose entry
+    has none: :func:`leaf_kernels`)."""
+    parts = []
+    for k in cfg["kernels"]:
+        parts += [*np.atleast_1d(k["logl"]), k.get("logsigma", 0.0), cfg["log_noise"]]
+    return np.array(parts, dtype=np.float64)
+
+
+def leaf_kernels(cfg, dim):
+    """The configuration's ``kernels`` list as the port's ``KernelSpec``s,
+    in order. Each entry's ``kind`` is one of the port's kinds
+    (``kernels.KIND_*``); its ``logl`` is one value or a list of one per
+    input dimension (``dim``); a kind with a variance takes ``logsigma`` and
+    any other none. Anything else raises ``ValueError``."""
+    from deepstructuredmixtures_tpu_torch import kernels
+
+    kinds = sorted(v for n, v in vars(kernels).items() if n.startswith("KIND_"))
+    specs = []
+    for e in cfg["kernels"]:
+        if e["kind"] not in kinds:
+            raise ValueError(f"unknown kernel kind {e['kind']!r}; the port's: {kinds}")
+        logl = tuple(float(v) for v in np.atleast_1d(e["logl"]))
+        if len(logl) not in (1, dim):
+            raise ValueError(f"{e['kind']}: {len(logl)} lengthscales for {dim}-D data")
+        spec = kernels.KernelSpec(e["kind"], logl, 0.0)
+        if spec.has_variance:
+            spec = spec._replace(logsigma=float(e["logsigma"]))
+        elif "logsigma" in e:
+            raise ValueError(f"{e['kind']} has no variance, so no logsigma")
+        specs.append(spec)
+    if not specs:
+        raise ValueError("the configuration names no leaf kernel")
+    return specs
 
 
 def build_model(cfg, x, y, device):
     """The configuration's model through the program's public builder, not
-    fitted, without the overlap analysis (no cell reads it)."""
+    fitted, without the overlap analysis (no cell reads it): one leaf kernel
+    alone, several as a list (a leaf-level mixture)."""
     import torch
 
     import deepstructuredmixtures_tpu_torch as tdsm
 
+    specs = leaf_kernels(cfg, np.shape(x)[1])
     return tdsm.build_dsmgp(
         x, y, V=cfg["V"], K=cfg["K"], M=cfg["M"], depth=cfg["depth"], eps=cfg["eps"],
-        kernel=tdsm.IsoSE(cfg["logl"], cfg["logsigma"]), log_noise=cfg["log_noise"],
+        kernel=specs[0] if len(specs) == 1 else specs, log_noise=cfg["log_noise"],
         seed=cfg["tree_seed"], device=device, dtype=getattr(torch, cfg["dtype"]),
         do_fit=False, overlap=False)
 

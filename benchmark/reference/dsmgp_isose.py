@@ -75,6 +75,10 @@ class Model:
     under the configuration ``cfg`` (a configuration file's model keys)."""
 
     def __init__(self, x, y, cfg):
+        kinds = [k["kind"] for k in cfg["kernels"]]
+        if kinds != ["iso_se"]:
+            raise ValueError(f"this reference holds one iso_se leaf kernel, not {kinds}: "
+                             "a configuration whose model differs names its own reference")
         self.x = np.asarray(x, dtype=np.float64)
         self.y = np.asarray(y, dtype=np.float64)
         self.cfg = cfg
